@@ -14,13 +14,12 @@ import numpy as np
 
 import jax
 
-try:
-    _backend = jax.default_backend()
-except RuntimeError:
-    jax.config.update("jax_platforms", "cpu")
-    _backend = "cpu"
+from vsmartmom.util.compile_cache import enable_compile_cache
+
+_backend = jax.default_backend()
 if _backend == "cpu":
     jax.config.update("jax_enable_x64", True)
+enable_compile_cache()
 
 from vsmartmom.core.canopy import CanopyRTInputs, rt_run_canopy
 from vsmartmom.core.rt_run import BandRTInputs

@@ -12,13 +12,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-try:
-    _backend = jax.default_backend()
-except RuntimeError:           # accelerator busy/unavailable -> CPU
-    jax.config.update("jax_platforms", "cpu")
-    _backend = "cpu"
+from vsmartmom.util.compile_cache import enable_compile_cache
+
+_backend = jax.default_backend()
 if _backend == "cpu":
     jax.config.update("jax_enable_x64", True)
+enable_compile_cache()
 
 from vsmartmom.core.autodiff import gauss_newton, make_radiance_fn
 from vsmartmom.scattering.phase import Polarization, get_greek_rayleigh
@@ -36,19 +35,21 @@ def main():
     tau_scat = np.full((n_z, n_spec), 0.05)
     tau_abs0 = rng.uniform(0.05, 0.8, (n_z, n_spec))
 
-    # On an accelerator, run the retrieval THROUGH the production engine:
-    # the fused Pallas layer-step kernel computes the primal and its
-    # custom_jvp (XLA-twin tangent) carries the Jacobian — the analog of
-    # the reference differentiating its CUBLAS path via Dual overloads
+    # On the GPU, run the retrieval THROUGH the engine rt_run's "auto"
+    # picks (the fused layer-step kernel computes the primal and its
+    # custom_jvp, the XLA-twin tangent, carries the Jacobian) — the analog
+    # of the reference differentiating its CUBLAS path via Dual overloads
     # (ref: gpu_batched.jl:100-151). On CPU keep the exact f64 LU path.
     engine_kw = {}
     if _backend != "cpu":
-        from vsmartmom.core.rt_run import build_layer_schedules
+        from vsmartmom.core.rt_run import (build_layer_schedules,
+                                           choose_engine)
         tau0 = tau_scat + tau_abs0
         nd, sched, scheds = build_layer_schedules(
             tau0, tau_scat / tau0, float(np.min(quad.qp_mu)), "schulz")
         engine_kw = dict(dtype=jnp.float32, solver="schulz",
-                         doubling_engine="pallas_step",
+                         doubling_engine=choose_engine(
+                             _backend, jnp.float32, len(quad.qp_mu_n), True),
                          layer_schedules=scheds, ndoubl_static=nd,
                          ns_schedule=sched)
     fn = make_radiance_fn(pol, quad, [get_greek_rayleigh(0.028)],

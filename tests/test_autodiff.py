@@ -73,7 +73,7 @@ def test_gauss_newton_retrieval():
 
 
 def _setup_engine(engine, n_z=3, n_spec=4, dtype=jnp.float32):
-    """Radiance fn on a PRODUCTION TPU engine with static schedules built
+    """Radiance fn on a production engine with static schedules built
     from the representative profile (rt_run.build_layer_schedules)."""
     from vsmartmom.core.rt_run import build_layer_schedules
     pol = Polarization.from_name("Stokes_I")
@@ -95,8 +95,8 @@ def _setup_engine(engine, n_z=3, n_spec=4, dtype=jnp.float32):
 
 @pytest.mark.parametrize("engine", ["xla_dev", "pallas_step_interpret"])
 def test_jacfwd_through_production_engines(engine):
-    """jacfwd through the production TPU engines — the xla_dev split-form
-    path natively, the fused Pallas kernel via its custom_jvp (kernel
+    """jacfwd through the production engines — the xla_dev split-form
+    path natively, the fused layer-step kernel via its custom_jvp (kernel
     primal, XLA-twin tangent) — gated against f64 finite differences of
     the default CPU path (ref: the reference differentiates its
     production CUBLAS path, gpu_batched.jl:100-151)."""

@@ -1,16 +1,13 @@
 """Direct/diffuse split ("deviation form") engine gates.
 
-The dev-form engines (core.rt.{doubling_dev, interaction_dev}; Pallas twin
-pallas/layer_step_kernel.fused_layer_step_dev; driver engines "xla_dev" /
-"pallas_dd") carry every transmission operator as diag(g) + E so no matmul
-operand contains the ~1.0 direct-beam diagonal. This is what makes 3-pass
-bf16x3 MXU matmuls accurate (plain bf16x3 fails the accuracy gates at
-~0.4 rel — data/qualification/precision_r03.jsonl) and improves the plain
-f32 floor of the doubling recursion ~4x. These gates pin:
+The dev-form engine (core.rt.{doubling_dev, interaction_dev}; driver
+engine "xla_dev") carries every transmission operator as diag(g) + E so no
+matmul operand contains the ~1.0 direct-beam diagonal. This is what keeps
+reduced-precision products (a 3-pass bf16 split, "bf16x3") accurate and
+lowers the plain f32 floor of the doubling recursion. These gates pin:
   1. exact algebraic equivalence to the plain path (f64, LU),
   2. engine equivalence through rt_run_band (dev == plain bucketed schulz),
-  3. the Pallas kernel == its XLA twin (shared algebra, interpret mode),
-  4. the bf16x3 cliff-kill: deviation-form bf16x3 stays at the f32 floor
+  3. the bf16x3 cliff-kill: deviation-form bf16x3 stays at the f32 floor
      on a grazing-mu doubling stack where plain bf16x3 collapses.
 No reference counterpart (the reference runs f64 CUBLAS throughout).
 """
@@ -112,7 +109,7 @@ def test_rt_run_band_xla_dev_matches_plain_lu_f64():
     """Exact-LU f64 twin: with both engines solving exactly (no Newton-
     Schulz truncation in the comparison), the split-form algebra must
     reproduce the plain engine to f64 roundoff — the 'identical algebra'
-    claim pinned at full precision rather than via f32 TPU gate runs.
+    claim pinned at full precision rather than via f32 gate runs.
     Uniform profile: both engines then run the same static ndoubl (a
     spread profile puts plain-LU on the traced unquantized path while the
     dev engine uses quantized buckets — a discretization, not algebra,
@@ -132,36 +129,10 @@ def test_rt_run_band_xla_dev_matches_plain_lu_f64():
     assert np.abs(T1 - T0).max() < 1e-11 * np.abs(T0).max()
 
 
-def test_rt_run_band_pallas_dd_matches_xla_dev(monkeypatch):
-    """The Pallas dev kernel is the XLA dev path's twin (shared algebra);
-    at interpret + highest precision they agree to f64 roundoff."""
-    monkeypatch.setenv("VSM_DD_PRECISION", "highest")
-    pol, quad, band, surf = _band_fixture()
-    kw = dict(dtype=jnp.float64, max_m=2, solver="schulz", surface=surf)
-    R0, _ = rt_run_band(pol, quad, band, [30.], [0.],
-                        doubling_engine="xla_dev", **kw)
-    R1, _ = rt_run_band(pol, quad, band, [30.], [0.],
-                        doubling_engine="pallas_dd_interpret", **kw)
-    assert np.abs(R1 - R0).max() < 1e-12 * np.abs(R0).max()
-
-
-def test_rt_run_band_pallas_dd_bf16x3_emulated(monkeypatch):
-    """Interpret mode with the bf16x3 split emulates the TPU mode on CPU:
-    the dev form keeps it within ~1e-5 of the f64 result end-to-end."""
-    monkeypatch.setenv("VSM_DD_PRECISION", "bf16x3")
-    pol, quad, band, surf = _band_fixture()
-    kw = dict(dtype=jnp.float64, max_m=2, solver="schulz", surface=surf)
-    R0, _ = rt_run_band(pol, quad, band, [30.], [0.],
-                        doubling_engine="xla_dev", **kw)
-    R1, _ = rt_run_band(pol, quad, band, [30.], [0.],
-                        doubling_engine="pallas_dd_interpret", **kw)
-    assert np.abs(R1 - R0).max() < 3e-5 * np.abs(R0).max()
-
-
 def test_dev_bf16x3_kills_the_precision_cliff():
     """The round-3 excluded lever, reclaimed: on a grazing-mu 13-doubling
-    stack (the precision_r03 failure shape) plain bf16x3 collapses (>0.1
-    rel) while deviation-form bf16x3 stays at/below the plain-f32 floor."""
+    stack plain bf16x3 collapses (>0.1 rel) while deviation-form bf16x3
+    stays at/below the plain-f32 floor."""
     from vsmartmom.core.rt import doubling, doubling_dev
     rng = np.random.default_rng(1)
     S, n, nd = 16, 16, 13
@@ -199,7 +170,7 @@ def test_dev_bf16x3_kills_the_precision_cliff():
         rsolve=make_rsolve("schulz", 4), ns_schedule=sched)
     plain_f32_err = max(rel(r_f32, r64), rel(t_f32, t64))
 
-    # bf16x3-emulating matmul (the exact split batch_mm("bf16x3") builds)
+    # bf16x3-emulating matmul: a_hi b_lo + a_lo b_hi + a_hi b_hi
     def mm_b3(a, b):
         ah = a.astype(jnp.bfloat16).astype(jnp.float32)
         al = (a - ah).astype(jnp.bfloat16).astype(jnp.float32)
@@ -236,11 +207,9 @@ def test_dev_bf16x3_kills_the_precision_cliff():
     td = ed + gd[:, :, None] * jnp.eye(n, dtype=jnp.float32)[None]
     dev_b3_err = max(rel(rd, r64), rel(td, t64))
 
-    # The CPU emulation only carries the dropped-a_lo*b_lo error (~2^-18
-    # per term); the real-TPU cliff is larger still (0.36-0.46 rel,
-    # data/qualification/precision_r03.jsonl + round-4 repro). Assert the
-    # ORDERING the design claims: plain bf16x3 is well above the f32
-    # floor, dev-form bf16x3 is at/below it.
+    # The emulation only carries the dropped-a_lo*b_lo error (~2^-18 per
+    # term). Assert the ORDERING the design claims: plain bf16x3 is well
+    # above the f32 floor, dev-form bf16x3 is at/below it.
     assert plain_b3_err > 4.0 * plain_f32_err, (plain_b3_err, plain_f32_err)
     assert dev_b3_err < 1.5 * plain_f32_err, (dev_b3_err, plain_f32_err)
     assert dev_b3_err < 1e-3, dev_b3_err
@@ -248,7 +217,7 @@ def test_dev_bf16x3_kills_the_precision_cliff():
 
 def test_rt_run_band_dev_heterogeneous_34_layers():
     """Flagship decision path: 34-layer wide-spread profile, schulz,
-    through rt_run_band's own schedule builder, dev Pallas engine."""
+    through rt_run_band's own schedule builder, dev engine."""
     pol = Polarization.from_name("Stokes_I")
     quad = rt_set_streams("GaussQuadFullSphere", 6, 60.0, [30.0], pol.n)
     n_z, n_spec = 34, 16

@@ -1,15 +1,19 @@
-"""Fused Pallas doubling kernel gates (interpret mode on CPU).
+"""Fused layer-step kernel gates (Triton route, interpret mode on CPU).
 
-The kernel holds the whole doubling recursion in VMEM (see
-vsmartmom/pallas/doubling_kernel.py); these gates pin it against the XLA
-batched-matmul path it replaces.
+The kernel holds one spectral point's doubling recursion and interaction
+on-chip (see vsmartmom/pallas/layer_step_kernel.py); these gates pin it
+against its XLA twin, through rt_run_band, and pin the engine and solver
+choice rules. The compiled kernel on the card is covered by the gpu-marked
+tests in test_chip.py and by chip_smoke.py.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from vsmartmom.core.rt import (doubling, make_rsolve, ns_doubling_schedule)
-from vsmartmom.pallas.doubling_kernel import fused_doubling
+from vsmartmom.core.rt import LayerRT, ns_doubling_schedule, vacuum_layer
+from vsmartmom.pallas.layer_step_kernel import (_xla_twin_step,
+                                                fused_layer_step, padded_n)
 
 
 def _fixture(S=40, n=16, nd=6, seed=0):
@@ -26,34 +30,16 @@ def _fixture(S=40, n=16, nd=6, seed=0):
     jp = jnp.asarray(rng.uniform(0, dtau, (S, n)), jnp.float32)
     jm = jnp.asarray(rng.uniform(0, dtau, (S, n)), jnp.float32)
     ek = jnp.full((S,), np.exp(-dtau / 0.7), jnp.float32)
-    eye = jnp.broadcast_to(jnp.eye(n, dtype=jnp.float32), (S, n, n))
-    return sched, r0, t0, jp, jm, ek, eye, nd
+    d = np.ones(n, np.float32)
+    d[n // 2:] = -1.0                       # exercise the D-flip signs
+    return sched, r0, t0, jp, jm, ek, jnp.asarray(d)
 
 
-def test_fused_doubling_matches_xla():
-    sched, r0, t0, jp, jm, ek, eye, nd = _fixture()
-    ref = doubling(r0, t0, jp, jm, ek, nd, eye,
-                   rsolve=make_rsolve("schulz", 4), ns_schedule=sched)
-    out = fused_doubling(r0, t0, jp, jm, ek, ns_schedule=sched,
-                         block_s=16, interpret=True)
-    for name, a, b in zip(("r", "t", "jp", "jm"), ref, out):
-        d = np.abs(np.asarray(a) - np.asarray(b)).max()
-        s = np.abs(np.asarray(a)).max()
-        assert d / s < 1e-6, (name, d / s)
-
-
-def test_fused_doubling_pads_ragged_nspec():
-    """nSpec not a multiple of block_s: zero-padded points are inert and
-    sliced away."""
-    sched, r0, t0, jp, jm, ek, eye, nd = _fixture(S=40)
-    out_full = fused_doubling(r0, t0, jp, jm, ek, ns_schedule=sched,
-                              block_s=16, interpret=True)     # pads 40 -> 48
-    out_exact = fused_doubling(r0, t0, jp, jm, ek, ns_schedule=sched,
-                               block_s=8, interpret=True)     # no padding
-    for a, b in zip(out_full, out_exact):
-        assert a.shape[0] == 40
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-6, atol=1e-12)
+def _composite(S, n, sched, r0, t0, jp, jm, ek, d):
+    """A non-trivial composite: one XLA layer step on a vacuum."""
+    with jax.default_matmul_precision("highest"):
+        return _xla_twin_step(vacuum_layer(S, n, jnp.float32), r0, t0, jp,
+                              jm, ek, d, ns_schedule=sched, ni=4)
 
 
 def test_rt_run_band_pallas_step_engine_matches_xla():
@@ -80,99 +66,6 @@ def test_rt_run_band_pallas_step_engine_matches_xla():
                            doubling_engine="pallas_step_interpret", **kw)
     np.testing.assert_allclose(R_p, R_x, rtol=2e-5, atol=1e-9)
     np.testing.assert_allclose(T_p, T_x, rtol=2e-5, atol=1e-9)
-
-
-def test_rt_run_band_pallas_engine_matches_xla():
-    """Full rt_run_band with doubling_engine='pallas_interpret' == 'xla'."""
-    from vsmartmom.core.rt_run import BandRTInputs, rt_run_band
-    from vsmartmom.scattering.phase import Polarization, get_greek_rayleigh
-    from vsmartmom.util.quadrature import rt_set_streams
-
-    pol = Polarization.from_name("Stokes_IQU")
-    quad = rt_set_streams("GaussQuadFullSphere", 8, 45.0, [10.0], pol.n)
-    rng = np.random.default_rng(1)
-    n_spec, n_z = 24, 3
-    tau_r = np.full((n_z, n_spec), 0.08)
-    tau = tau_r + rng.uniform(0, 0.3, (n_z, n_spec))
-    band = BandRTInputs(tau=tau, omega=tau_r / tau,
-                        zw=np.ones((n_z, 1, n_spec)),
-                        greeks=[get_greek_rayleigh(0.03)])
-    surf = {"type": "LambertianSurfaceScalar", "albedo": 0.2}
-    kw = dict(dtype=jnp.float32, solver="schulz")
-    R_x, T_x = rt_run_band(pol, quad, band, [10.0], [30.0], 2, surf,
-                           doubling_engine="xla", **kw)
-    R_p, T_p = rt_run_band(pol, quad, band, [10.0], [30.0], 2, surf,
-                           doubling_engine="pallas_interpret", **kw)
-    np.testing.assert_allclose(R_p, R_x, rtol=5e-6, atol=1e-9)
-    np.testing.assert_allclose(T_p, T_x, rtol=5e-6, atol=1e-9)
-
-
-def test_rt_run_band_pallas_scan_engine_matches_xla():
-    """Fully-fused layer-scan kernel (interpret) == XLA path end-to-end."""
-    from vsmartmom.core.rt_run import BandRTInputs, rt_run_band
-    from vsmartmom.scattering.phase import Polarization, get_greek_rayleigh
-    from vsmartmom.util.quadrature import rt_set_streams
-
-    pol = Polarization.from_name("Stokes_IQU")
-    quad = rt_set_streams("GaussQuadFullSphere", 8, 45.0, [10.0], pol.n)
-    rng = np.random.default_rng(2)
-    n_spec, n_z = 24, 3
-    tau_r = np.full((n_z, n_spec), 0.08)
-    tau = tau_r + rng.uniform(0, 0.3, (n_z, n_spec))
-    band = BandRTInputs(tau=tau, omega=tau_r / tau,
-                        zw=np.ones((n_z, 1, n_spec)),
-                        greeks=[get_greek_rayleigh(0.03)])
-    surf = {"type": "LambertianSurfaceScalar", "albedo": 0.2}
-    kw = dict(dtype=jnp.float32, solver="schulz")
-    R_x, T_x = rt_run_band(pol, quad, band, [10.0], [30.0], 2, surf,
-                           doubling_engine="xla", **kw)
-    R_p, T_p = rt_run_band(pol, quad, band, [10.0], [30.0], 2, surf,
-                           doubling_engine="pallas_scan_interpret", **kw)
-    np.testing.assert_allclose(R_p, R_x, rtol=5e-6, atol=1e-9)
-    np.testing.assert_allclose(T_p, T_x, rtol=5e-6, atol=1e-9)
-
-
-def test_rt_run_band_pallas_scan_bucketed():
-    """Bucketed fused layer-scan engine (per-layer static schedules on a
-    widely-spread profile -> MULTIPLE chained kernels, composite passed
-    kernel-to-kernel) == the XLA engine running the identical quantized
-    schedules. Also covers the vacuum-composite first step (interaction
-    with R=0, T=I is exact — layer_scan_kernel.py)."""
-    from vsmartmom.core.rt_run import (BandRTInputs, build_layer_schedules,
-                                       rt_run_band)
-    from vsmartmom.scattering.phase import Polarization, get_greek_rayleigh
-    from vsmartmom.util.quadrature import rt_set_streams
-
-    pol = Polarization.from_name("Stokes_IQU")
-    quad = rt_set_streams("GaussQuadFullSphere", 8, 45.0, [10.0], pol.n)
-    rng = np.random.default_rng(5)
-    n_z, n_spec = 6, 8
-    tau_scat = (np.array([1e-4, 1e-3, 0.01, 0.05, 0.3, 1.0])[:, None]
-                * np.ones((1, n_spec)))
-    tau = tau_scat + rng.uniform(0, 0.3, (n_z, n_spec))
-    band = BandRTInputs(tau=tau, omega=tau_scat / tau,
-                        zw=np.ones((n_z, 1, n_spec)),
-                        greeks=[get_greek_rayleigh(0.03)])
-    # engage the per-layer (bucketed) path, not the uniform one
-    min_qp_mu = float(np.min(quad.qp_mu))
-    _, _, scheds = build_layer_schedules(tau, tau_scat / tau, min_qp_mu,
-                                         "schulz")
-    assert scheds is not None and len({s[:2] for s in scheds}) >= 2
-    surf = {"type": "LambertianSurfaceScalar", "albedo": 0.2}
-    kw = dict(dtype=jnp.float32, solver="schulz")
-    R64, _ = rt_run_band(pol, quad, band, [10.0], [30.0], 2, surf)
-    R_x, T_x = rt_run_band(pol, quad, band, [10.0], [30.0], 2, surf,
-                           doubling_engine="xla", **kw)
-    R_p, T_p = rt_run_band(pol, quad, band, [10.0], [30.0], 2, surf,
-                           doubling_engine="pallas_scan_interpret", **kw)
-    # vs the same-schedule XLA f32 engine: the kernel's in-kernel Taylor
-    # _expm1 rounds differently from correctly-rounded expm1 (~2e-7/use),
-    # accumulating ~1e-6 over a 12-step doubling — normalized criterion,
-    # same as the fused-step schedules test below
-    assert np.abs(R_p - R_x).max() / np.abs(R_x).max() < 5e-5
-    assert np.abs(T_p - T_x).max() / np.abs(T_x).max() < 5e-5
-    # physical accuracy vs f64 (well inside the 6SV1/Natraj gates)
-    assert np.abs(R_p - R64).max() / np.abs(R64).max() < 2e-3
 
 
 def test_fused_layer_step_per_layer_schedules():
@@ -214,89 +107,190 @@ def test_fused_layer_step_per_layer_schedules():
     assert np.abs(R32 - R64).max() / np.abs(R64).max() < 2e-3
 
 
-def test_fused_lanes_engine():
-    """Lanes-layout VPU layer-step math (the small-N production engine on
-    TPU): the shared pure-jnp body == core.rt doubling+interaction on a
-    physical fixture. (Pallas interpret mode is ~1000x too slow for this
-    op count; the real-TPU glue is exercised by tools/check_bucketed.py
-    and bench.py.)"""
-    import jax.numpy as jnp
-    from vsmartmom.core.rt import (LayerRT, doubling, interaction,
-                                   make_rsolve, ns_doubling_schedule,
-                                   vacuum_layer)
-    from vsmartmom.pallas.lanes_kernel import (from_lanes_m, from_lanes_v,
-                                               lanes_layer_step_math,
-                                               to_lanes_m, to_lanes_v)
 
-    rng = np.random.default_rng(3)
-    S, n, nd = 24, 15, 6
-    tau_scat, mqm = 0.4, 0.15
-    sched = ns_doubling_schedule(tau_scat, mqm, nd)
-    dtau = tau_scat / 2 ** nd
-    d_vec = np.ones(n, np.float32)
-    r0 = jnp.asarray(rng.uniform(0, 1, (S, n, n)) * dtau / (n * mqm),
-                     jnp.float32)
-    t0 = jnp.asarray(
-        np.broadcast_to(np.eye(n) * np.exp(-dtau / mqm), (S, n, n)).copy()
-        + rng.uniform(0, 1, (S, n, n)) * dtau / (2 * n * mqm), jnp.float32)
-    jp0 = jnp.asarray(rng.uniform(0, dtau, (S, n)), jnp.float32)
-    jm0 = jnp.asarray(rng.uniform(0, dtau, (S, n)), jnp.float32)
-    ek = jnp.full((S,), np.exp(-dtau / 0.7), jnp.float32)
-    eye = jnp.broadcast_to(jnp.eye(n, dtype=jnp.float32), (S, n, n))
-    # a non-trivial composite to interact with
-    comp = vacuum_layer(S, n, jnp.float32)
-    rs = make_rsolve("schulz", 4)
-    rd, td, jpd, jmd = doubling(r0, t0, jp0, jm0, ek, nd, eye, rsolve=rs,
-                                ns_schedule=sched)
-    sgn = d_vec[None, :, None] * d_vec[None, None, :]
-    added0 = LayerRT(r_mp=rd, r_pm=sgn * rd, t_pp=td, t_mm=sgn * td,
-                     j_p=jpd, j_m=jmd)
-    comp = interaction(comp, added0, eye, rsolve=rs)
 
-    # reference: doubling + interaction through core.rt
-    ref_added = LayerRT(r_mp=rd, r_pm=sgn * rd, t_pp=td, t_mm=sgn * td,
-                        j_p=jpd, j_m=jmd)
-    ref = interaction(comp, ref_added, eye, rsolve=rs)
-
-    # lanes math on the same inputs (flipped-space r/jm, D = +1 here)
-    outs = lanes_layer_step_math(
-        to_lanes_m(comp.r_mp), to_lanes_m(comp.r_pm),
-        to_lanes_m(comp.t_pp), to_lanes_m(comp.t_mm),
-        to_lanes_v(comp.j_p), to_lanes_v(comp.j_m),
-        to_lanes_m(r0), to_lanes_m(t0), to_lanes_v(jp0), to_lanes_v(jm0),
-        jnp.reshape(ek, (1, S)), jnp.asarray(d_vec).reshape(n, 1),
-        ns_schedule=sched, ni=4)
-    got = LayerRT(*(from_lanes_m(m) for m in outs[:4]),
-                  *(from_lanes_v(v) for v in outs[4:]))
-    for name in LayerRT._fields:
-        a = np.asarray(getattr(ref, name))
-        b = np.asarray(getattr(got, name))
-        rel = np.abs(a - b).max() / max(np.abs(a).max(), 1e-12)
+@pytest.mark.parametrize("n_spec", [7, 16])
+@pytest.mark.parametrize("n", [15, 16, 44])
+def test_fused_layer_step_interpret_matches_twin(n, n_spec):
+    """Kernel (interpret mode, N zero-padded to 16/64) == its XLA twin on
+    a non-trivial composite, for ragged and even spectral counts."""
+    sched, r0, t0, jp, jm, ek, d = _fixture(S=n_spec, n=n, nd=5)
+    comp = _composite(n_spec, n, sched, r0, t0, jp, jm, ek, d)
+    with jax.default_matmul_precision("highest"):
+        ref = _xla_twin_step(comp, r0, t0, jp, jm, ek, d, ns_schedule=sched,
+                             ni=4)
+    out = fused_layer_step(comp, r0, t0, jp, jm, ek, d, ns_schedule=sched,
+                           ni=4, interpret=True)
+    for name, a, b in zip(LayerRT._fields, ref, out):
+        assert b.shape == a.shape, name
+        rel = np.abs(np.asarray(a) - np.asarray(b)).max() \
+            / np.abs(np.asarray(a)).max()
         assert rel < 2e-5, (name, rel)
 
 
-def test_rt_run_band_lanes_engine_matches_xla():
-    """End-to-end rt_run_band with doubling_engine='pallas_lanes_interpret'
-    on a TINY case (interpret is slow) == 'xla' at the same schedules."""
-    import jax.numpy as jnp
+def test_fused_layer_step_carries_padded_composite():
+    """A composite passed at the padded size comes back padded, with the
+    padding still zero, and equals the unpadded call on the real block."""
+    from vsmartmom.pallas.layer_step_kernel import pad_layer, unpad_layer
+    n, S = 15, 5
+    sched, r0, t0, jp, jm, ek, d = _fixture(S=S, n=n, nd=4)
+    comp = _composite(S, n, sched, r0, t0, jp, jm, ek, d)
+    kw = dict(ns_schedule=sched, ni=3, interpret=True)
+    out = fused_layer_step(comp, r0, t0, jp, jm, ek, d, **kw)
+    outp = fused_layer_step(pad_layer(comp, padded_n(n)), r0, t0, jp, jm,
+                            ek, d, **kw)
+    assert outp.r_mp.shape == (S, 16, 16)
+    assert float(jnp.abs(outp.t_pp[:, n:, :]).max()) == 0.0
+    for a, b in zip(out, unpad_layer(outp, n)):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=1e-6,
+                                   atol=1e-9)
+
+
+@pytest.mark.parametrize("n, expect", [(1, 16), (15, 16), (16, 16),
+                                       (17, 32), (44, 64), (63, 64)])
+def test_padded_n(n, expect):
+    assert padded_n(n) == expect
+
+
+@pytest.mark.parametrize("sched, expect", [
+    ((), ()),
+    ((4,), ((4, 1),)),
+    ((0, 0, 1, 1, 1, 2, 4, 4), ((0, 2), (1, 3), (2, 1), (4, 2))),
+    ((3, 2, 3), ((3, 1), (2, 1), (3, 1))),
+])
+def test_ns_runs(sched, expect):
+    """The kernel loops over runs of equal NS counts, in schedule order."""
+    from vsmartmom.pallas.layer_step_kernel import ns_runs
+    assert ns_runs(sched) == expect
+
+
+def test_fused_layer_step_jvp_matches_twin():
+    """custom_jvp: kernel primal + twin tangent == jvp of the twin."""
+    n, S = 15, 6
+    sched, r0, t0, jp, jm, ek, d = _fixture(S=S, n=n, nd=4)
+    comp = _composite(S, n, sched, r0, t0, jp, jm, ek, d)
+    rng = np.random.default_rng(9)
+    dr = jnp.asarray(rng.normal(size=r0.shape) * 1e-3, jnp.float32)
+    djp = jnp.asarray(rng.normal(size=jp.shape) * 1e-3, jnp.float32)
+
+    def kern(r, j):
+        return fused_layer_step(comp, r, t0, j, jm, ek, d,
+                                ns_schedule=sched, ni=4, interpret=True)
+
+    def twin(r, j):
+        with jax.default_matmul_precision("highest"):
+            return _xla_twin_step(comp, r, t0, j, jm, ek, d,
+                                  ns_schedule=sched, ni=4)
+
+    p_k, t_k = jax.jvp(kern, (r0, jp), (dr, djp))
+    p_t, t_t = jax.jvp(twin, (r0, jp), (dr, djp))
+    for a, b in zip(t_t, t_k):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=1e-6,
+                                   atol=1e-7 * float(jnp.abs(a).max()))
+    for a, b in zip(p_t, p_k):
+        rel = float(jnp.abs(a - b).max() / jnp.abs(a).max())
+        assert rel < 2e-5
+
+
+def test_pallas_step_without_schedules_raises():
+    """The kernel needs static NS schedules: asking for it under the LU
+    solver fails loudly instead of switching engines."""
     from vsmartmom.core.rt_run import BandRTInputs, rt_run_band
     from vsmartmom.scattering.phase import Polarization, get_greek_rayleigh
     from vsmartmom.util.quadrature import rt_set_streams
 
     pol = Polarization.from_name("Stokes_I")
-    quad = rt_set_streams("GaussQuadFullSphere", 8, 45.0, [10.0], pol.n)
-    rng = np.random.default_rng(1)
-    n_spec, n_z = 8, 2
-    tau_r = np.array([[0.02], [0.2]]) * np.ones((1, n_spec))
-    tau = tau_r + rng.uniform(0, 0.1, (n_z, n_spec))
-    band = BandRTInputs(tau=tau, omega=tau_r / tau,
+    quad = rt_set_streams("GaussQuadFullSphere", 6, 45.0, [10.0], pol.n)
+    n_z, n_spec = 4, 4
+    tau = np.array([1e-4, 1e-2, 0.3, 1.0])[:, None] * np.ones((1, n_spec))
+    band = BandRTInputs(tau=tau, omega=np.full_like(tau, 0.9),
                         zw=np.ones((n_z, 1, n_spec)),
                         greeks=[get_greek_rayleigh(0.03)])
     surf = {"type": "LambertianSurfaceScalar", "albedo": 0.2}
-    kw = dict(dtype=jnp.float32, solver="schulz")
-    R_x, T_x = rt_run_band(pol, quad, band, [10.0], [30.0], 1, surf,
-                           doubling_engine="xla", **kw)
-    R_p, T_p = rt_run_band(pol, quad, band, [10.0], [30.0], 1, surf,
-                           doubling_engine="pallas_lanes_interpret", **kw)
-    np.testing.assert_allclose(R_p, R_x, rtol=3e-5, atol=1e-9)
-    np.testing.assert_allclose(T_p, T_x, rtol=3e-5, atol=1e-9)
+    with pytest.raises(ValueError, match="schedules"):
+        rt_run_band(pol, quad, band, [10.0], [30.0], 1, surf,
+                    dtype=jnp.float32, solver="lu",
+                    doubling_engine="pallas_step_interpret")
+
+
+@pytest.mark.parametrize("backend, dtype, n, scheduled, expect", [
+    ("gpu", jnp.float32, 15, True, "pallas_step"),
+    ("gpu", jnp.float32, 16, True, "pallas_step"),
+    ("gpu", jnp.float32, 17, True, "pallas_step"),
+    ("gpu", jnp.float32, 32, True, "pallas_step"),
+    ("gpu", jnp.float32, 33, True, "xla"),
+    ("gpu", jnp.float32, 44, True, "xla"),
+    ("gpu", jnp.float32, 15, False, "xla"),
+    ("gpu", jnp.float64, 15, True, "xla"),
+    ("cpu", jnp.float32, 15, True, "xla"),
+    ("cpu", jnp.float64, 15, True, "xla"),
+])
+def test_choose_engine(backend, dtype, n, scheduled, expect):
+    from vsmartmom.core.rt_run import choose_engine
+    assert choose_engine(backend, dtype, n, scheduled) == expect
+
+
+@pytest.mark.parametrize("backend, expect", [("cpu", "lu"),
+                                             ("gpu", "schulz")])
+def test_default_solver(backend, expect):
+    from vsmartmom.core.rt_run import default_solver
+    assert default_solver(backend) == expect
+
+
+def test_rt_run_band_reports_engine():
+    """rt_run_band records the engine and solver it ran (auto on the CPU:
+    the XLA engine with exact LU)."""
+    from vsmartmom.core.rt_run import LAST_RUN, BandRTInputs, rt_run_band
+    from vsmartmom.scattering.phase import Polarization, get_greek_rayleigh
+    from vsmartmom.util.quadrature import rt_set_streams
+
+    pol = Polarization.from_name("Stokes_I")
+    quad = rt_set_streams("GaussQuadFullSphere", 6, 45.0, [10.0], pol.n)
+    band = BandRTInputs(tau=np.full((2, 3), 0.1), omega=np.full((2, 3), 0.9),
+                        zw=np.ones((2, 1, 3)),
+                        greeks=[get_greek_rayleigh(0.03)])
+    rt_run_band(pol, quad, band, [10.0], [30.0], 1,
+                {"type": "LambertianSurfaceScalar", "albedo": 0.2})
+    assert LAST_RUN == {"engine": "xla", "solver": "lu"}
+
+
+def _dot_precisions(jaxpr):
+    """precision params of every dot_general in a jaxpr, recursively."""
+    def subs(v):
+        if isinstance(v, jax.extend.core.ClosedJaxpr):
+            return [v.jaxpr]
+        if isinstance(v, jax.extend.core.Jaxpr):
+            return [v]
+        if isinstance(v, (tuple, list)):
+            return [j for x in v for j in subs(x)]
+        return []
+
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for sub in subs(list(eqn.params.values())):
+            out += _dot_precisions(sub)
+    return out
+
+
+def test_jvp_tangent_keeps_callers_precision():
+    """The custom_jvp rule is traced lazily, outside the caller's
+    default_matmul_precision context; its XLA-twin products must still
+    carry the caller's precision (else they run as TF32 on the GPU)."""
+    n, S = 15, 3
+    sched, r0, t0, jp, jm, ek, d = _fixture(S=S, n=n, nd=2)
+    comp = _composite(S, n, sched, r0, t0, jp, jm, ek, d)
+
+    @jax.jit
+    @jax.default_matmul_precision("highest")
+    def f(r):
+        return fused_layer_step(comp, r, t0, jp, jm, ek, d,
+                                ns_schedule=sched, ni=2, interpret=True)
+
+    jaxpr = jax.make_jaxpr(lambda r: jax.jvp(f, (r,), (r,)))(r0).jaxpr
+    precs = _dot_precisions(jaxpr)
+    assert precs, "no products traced"
+    highest = (jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST)
+    assert all(p == highest for p in precs
+               if not isinstance(p, jax.lax.DotAlgorithmPreset)), precs

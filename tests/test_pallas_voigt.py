@@ -1,9 +1,10 @@
-"""Pallas Voigt kernel gates (interpret mode on CPU; compiled on TPU).
+"""Tiled Voigt cross-section gates (f32 line-bucketed tiles).
 
 1. Real-arithmetic Faddeeva == the complex CEF implementation.
-2. Tiled kernel == dense wofz reference at f32 tolerance.
-3. VoigtPlan == one-shot wrapper; engine='pallas' == engine='dense'
+2. Tiled sweep == dense wofz reference at f32 tolerance.
+3. VoigtPlan == one-shot wrapper; engine='tiled' == engine='dense'
    through the spectroscopy API on the CO2 parser fixture.
+4. Grids ending mid-tile.
 """
 import os
 
@@ -12,8 +13,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from vsmartmom.pallas.voigt_kernel import (VoigtPlan, rew_hw32sd,
-                                           voigt_xsec_pallas)
+from vsmartmom.spectroscopy.voigt import (VoigtPlan, rew_hw32sd,
+                                          voigt_xsec_tiled)
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -51,7 +52,7 @@ def _dense_truth(grid, nu, S, gd, yv, cut):
 def test_kernel_vs_dense():
     grid, nu, S, gd, yv = _rand_problem()
     cut = 10.0
-    sig = voigt_xsec_pallas(grid, nu, S, gd, yv, cut)
+    sig = voigt_xsec_tiled(grid, nu, S, gd, yv, cut)
     dense = _dense_truth(grid, nu, S, gd, yv, cut)
     assert np.abs(sig - dense).max() / dense.max() < 5e-4
 
@@ -61,12 +62,13 @@ def test_plan_matches_oneshot():
     cut = 8.0
     plan = VoigtPlan(grid, nu, cut)
     sig_plan = np.asarray(plan.run(nu, S, gd, yv))
-    sig_once = voigt_xsec_pallas(grid, nu, S, gd, yv, cut)
+    sig_once = voigt_xsec_tiled(grid, nu, S, gd, yv, cut)
     np.testing.assert_allclose(sig_plan, sig_once, rtol=2e-5,
                                atol=1e-6 * sig_once.max())
 
 
 def test_engine_pallas_matches_dense_api():
+    """engine='tiled' (the GPU's absorption engine) == engine='dense'."""
     from vsmartmom.spectroscopy.hitran import read_hitran
     from vsmartmom.spectroscopy.voigt import (
         compute_absorption_cross_section, make_hitran_model)
@@ -76,5 +78,17 @@ def test_engine_pallas_matches_dense_api():
     ref = np.asarray(compute_absorption_cross_section(
         model, grid, 1000.0, 296.0))
     got = np.asarray(compute_absorption_cross_section(
-        model, grid, 1000.0, 296.0, engine="pallas"))
+        model, grid, 1000.0, 296.0, engine="tiled"))
     assert np.abs(got - ref).max() < 1e-3 * ref.max() + 1e-30
+
+
+@pytest.mark.parametrize("n_g", [700, 2100])
+def test_tiles_with_partial_last_tile_match_dense(n_g):
+    """Grids that end mid-tile: the padded points never see a line and
+    the real points of the last tile keep f32 accuracy."""
+    grid, nu, S, gd, yv = _rand_problem(n_l=150, n_g=n_g, seed=7)
+    assert n_g % 256
+    got = np.asarray(VoigtPlan(grid, nu, 6.0).run(nu, S, gd, yv))
+    dense = _dense_truth(grid, nu, S, gd, yv, 6.0)
+    assert got.shape == (n_g,)
+    assert np.abs(got - dense).max() / dense.max() < 5e-4

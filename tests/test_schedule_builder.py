@@ -40,10 +40,10 @@ def test_build_layer_schedules_flagship_shape():
         assert isinstance(nd_z, int) and nd_z >= 1 and nd_z % 4 == 0
         assert len(sched_z) == nd_z
         assert isinstance(ni_z, int) and 0 <= ni_z <= 4
-    # Mosaic compile cap: at most 6 distinct (nd, sched, ni) combinations
+    # compile cap: at most 6 distinct (nd, sched, ni) combinations
     assert len(set(ls)) <= 6
     # thin upper atmosphere needs fewer interaction NS iterations than the
-    # thick bottom (the adaptivity lever) — engaged unless the Mosaic-cap
+    # thick bottom (the adaptivity lever) — engaged unless the cap's
     # collapse to a single global schedule fired
     nis = [e[2] for e in ls]
     assert nis[0] <= nis[-1]

@@ -1,9 +1,9 @@
-"""TPU-resident Levenberg-Marquardt for the line-list window polish.
+"""Device-resident Levenberg-Marquardt for the line-list window polish.
 
 Drop-in accelerator for tools/polish_windows.py's inner LM
-(VSM_FIT_TPU=1): the whole damped-LM iteration loop — Voigt model,
+(VSM_FIT_DEVICE=1): the whole damped-LM iteration loop — Voigt model,
 analytic Jacobian, scaled normal equations, accept/reject — runs as one
-jitted lax.scan on the TPU; only (theta in, theta out) crosses the host
+jitted lax.scan on the device; only (theta in, theta out) crosses the host
 boundary. The host (polish_windows) keeps its f64 wofz evaluation for the
 block accept/reject, so device f32 can only ever *propose* — never
 degrade — a block.
@@ -157,7 +157,7 @@ def _lm_scan(th0, data, g_off, gmask, lmask, cond_t, cond_p, qratio,
 
 def device_lm(theta, d_blk, g, conds, qratios, weight, clip_nu,
               iters=200):
-    """Polish one block of lines against its window data on the TPU.
+    """Polish one block of lines against its window data on the device.
 
     theta: (nl, 6) f64 [nu0, lnS, elow, ln_gair, nair, dair];
     d_blk: (25, ng) f64 target for THIS block; g: (ng,) grid;

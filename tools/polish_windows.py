@@ -32,14 +32,14 @@ from fit_linelist import (GRID, LineSet, STATE_DIR, WING,  # noqa
 PAD = 0.35      # co-fit margin around each window core [cm^-1]
 GPAD = 2.0      # extra grid margin for the data slice [cm^-1]
 
-# VSM_FIT_TPU=1: run the inner LM on the TPU (tools/fit_tpu.py). Requires
-# --procs=1 (one TPU client per process). The block-level accept/reject
+# VSM_FIT_DEVICE=1: run the inner LM on the device (tools/fit_device.py).
+# Requires --procs=1 (one process per card). The block-level accept/reject
 # stays in f64 wofz on the host, so the device can only improve a block.
-_TPU_FIT = os.environ.get("VSM_FIT_TPU") == "1"
+_DEVICE_FIT = os.environ.get("VSM_FIT_DEVICE") == "1"
 _QRATIO_CACHE: dict = {}
 
 
-def _tpu_qratios(ls, conds):
+def _device_qratios(ls, conds):
     key = (ls.mol_id, tuple(t for t, _ in conds))
     if key not in _QRATIO_CACHE:
         from vsmartmom.spectroscopy import tips
@@ -182,15 +182,15 @@ def lm_core(ls, conds, data, g, a, b, target, iters=150, max_splits=10,
         """LM on the ``idx`` subset; other lines frozen into base_model."""
         m_sub, _ = window_model_jac(ls, idx, conds, g)
         d_blk = data - (base_model - m_sub)
-        if _TPU_FIT:
-            # device-resident LM (tools/fit_tpu.py); the f64 wofz
+        if _DEVICE_FIT:
+            # device-resident LM (tools/fit_device.py); the f64 wofz
             # accept/reject below means f32 can only propose
-            import fit_tpu
+            import fit_device
             old = ls.theta[idx].copy()
             r0 = (d_blk - m_sub).ravel()
             cost0 = float(r0 @ r0)
-            th_new = fit_tpu.device_lm(
-                ls.theta[idx], d_blk, g, conds, _tpu_qratios(ls, conds),
+            th_new = fit_device.device_lm(
+                ls.theta[idx], d_blk, g, conds, _device_qratios(ls, conds),
                 ls.weight, (a - PAD - 0.2, b + PAD + 0.2),
                 iters=max(2 * iters, 300))
             ls.theta[idx] = th_new
@@ -319,7 +319,7 @@ def _work(task):
     # a FROZEN background contribution. Letting the fit move pad lines and
     # then merging only the core rows ships a state the fit never saw —
     # the core lines co-adapted to pad values that are thrown away. The
-    # CPU LM drifted pads too little to notice; the TPU LM exploited them
+    # CPU LM drifted pads too little to notice; the device LM exploited them
     # hard (observed: every window "improved" locally while the merged
     # GLOBAL max regressed 1.6e-24 -> 2.5e-22).
     core_snap = (theta_snap[:, 0] >= a) & (theta_snap[:, 0] < b)
@@ -530,10 +530,10 @@ def main(molecule, target, hours, procs, outer=8):
     ls.save(path)
     if molecule == "CO2":
         # refresh the production-path status artifact the achieved gate
-        # reads (subprocess on CPU: this process may hold the TPU client)
+        # reads (subprocess on the CPU: this process may hold the card)
         import subprocess
         env = dict(os.environ, JAX_PLATFORMS="cpu")
-        env.pop("VSM_FIT_TPU", None)
+        env.pop("VSM_FIT_DEVICE", None)
         subprocess.run([sys.executable,
                         os.path.join(os.path.dirname(__file__),
                                      "co2_status.py")], env=env, check=False)

@@ -5,7 +5,7 @@ window centered there, and moves on. Windows that fail to improve are
 blacklisted (+-half) so the loop walks DOWN the worst-point list instead
 of hammering one stubborn blend.
 
-Usage: VSM_FIT_TPU=1 python tools/refit_loop.py CO2 --hours=3
+Usage: VSM_FIT_DEVICE=1 python tools/refit_loop.py CO2 --hours=3
 """
 import os
 import sys
@@ -44,8 +44,9 @@ def main(molecule, hours, half=0.6, target=2.4e-27, iters=500):
     # final status refresh for the achieved gate
     if molecule == "CO2":
         import subprocess
+        # on the CPU: this process may hold the card
         env = dict(os.environ, JAX_PLATFORMS="cpu")
-        env.pop("VSM_FIT_TPU", None)
+        env.pop("VSM_FIT_DEVICE", None)
         subprocess.run([sys.executable,
                         os.path.join(os.path.dirname(__file__),
                                      "co2_status.py")], env=env,

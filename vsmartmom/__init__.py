@@ -1,10 +1,10 @@
-"""vsmartmom: TPU-native hyperspectral polarized radiative transfer.
+"""vsmartmom: hyperspectral polarized radiative transfer in JAX.
 
 A ground-up JAX/XLA/Pallas re-design with the capabilities of vSmartMOM.jl
 (RadiativeTransfer.jl): Matrix Operator Method doubling-adding RT, HITRAN
 line-by-line absorption, Mie/aerosol scattering, Rayleigh, BRDF surfaces,
 rotational-Raman inelastic scattering, and forward-mode differentiability —
-batched over the hyperspectral axis and sharded across TPU meshes.
+batched over the hyperspectral axis and sharded across device meshes.
 
 Public API (mirrors the reference exports, src/vSmartMOM.jl:49):
   parameters_from_yaml, default_parameters, model_from_parameters, rt_run

@@ -15,7 +15,8 @@ import re
 from typing import Any, Dict, List, Optional
 
 import numpy as np
-import yaml
+
+from vsmartmom.config import yaml_subset
 
 # ----------------------------------------------------------------------------
 # Safe arithmetic expression evaluation (for "1e7/777"-style YAML values)
@@ -249,8 +250,7 @@ def parameters_from_yaml(path: str) -> RTParameters:
 
     ref: src/CoreRT/tools/parameters_from_yaml.jl:147-287
     """
-    with open(path) as f:
-        d = yaml.safe_load(f)
+    d = yaml_subset.load(path)
     _validate(d, path)
 
     rt = d["radiative_transfer"]

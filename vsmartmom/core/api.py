@@ -129,7 +129,7 @@ def _concat_surface(model: RTModel, bands: Sequence[int]):
 
 
 def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
-           dtype=None, rs_type=None):
+           dtype=None, rs_type=None, **band_kw):
     """Run the forward RT simulation for the given band(s).
 
     ``rs_type`` selects inelastic (Raman) coupling, mirroring the
@@ -144,6 +144,8 @@ def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
 
     Shapes (n_vza, n_stokes, nSpec); multiple bands are concatenated along
     the spectral axis (ref: bandSpecLim bookkeeping in rt_run.jl:66-74).
+    ``band_kw`` (elastic runs): passed to rt_run_band — ``solver``,
+    ``doubling_engine``, ``matmul_precision``, ``mesh``.
     """
     import jax.numpy as jnp
     if dtype is None:
@@ -161,7 +163,8 @@ def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
             band = concat_band_inputs(model, bands)
             return rt_run_band(
                 model.pol, model.quad_points, band, model.obs_geom.vza,
-                model.obs_geom.vaz, model.params.max_m, surface, dtype=dtype)
+                model.obs_geom.vaz, model.params.max_m, surface, dtype=dtype,
+                **band_kw)
 
     outs = []
     for ib in bands:
@@ -174,7 +177,7 @@ def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
             outs.append(rt_run_band(
                 model.pol, model.quad_points, band, model.obs_geom.vza,
                 model.obs_geom.vaz, model.params.max_m, surface,
-                dtype=dtype))
+                dtype=dtype, **band_kw))
             continue
 
         from vsmartmom.core.rt_raman import rt_run_band_rrs

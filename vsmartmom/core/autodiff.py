@@ -33,16 +33,17 @@ def make_radiance_fn(pol: Polarization, quad: QuadPoints, greeks, vza, vaz,
     synthesis inside jax so jacfwd/jvp flow end-to-end. Z matrices are
     geometry constants (independent of the optical-state inputs).
 
-    ``doubling_engine``/``layer_schedules``: run the PRODUCTION TPU
-    engines under AD (ref: the reference differentiates its production
-    CUBLAS path via Dual overloads, gpu_batched.jl:100-151). "xla_dev" is
-    natively differentiable; the fused Pallas kernels ("pallas_step",
-    "pallas_dd") differentiate through their custom_jvp (kernel primal,
-    XLA-twin tangent — pallas/layer_step_kernel.py). Static schedules
+    ``doubling_engine``/``layer_schedules``: run the production engines
+    under AD (ref: the reference differentiates its production CUBLAS path
+    via Dual overloads, gpu_batched.jl:100-151). "xla_dev" is natively
+    differentiable; the fused layer-step kernel ("pallas_step")
+    differentiates through its custom_jvp (kernel primal, XLA-twin
+    tangent — pallas/layer_step_kernel.py). Static schedules
     must be precomputed from a representative profile
     (rt_run.build_layer_schedules) because tau/omega are traced here; the
     Jacobian is then of the model at that frozen discretization — exactly
-    the retrieval use case.
+    the retrieval use case. Products run at ``matmul_precision``, as in
+    rt_run_band.
     """
     n = len(quad.qp_mu_n)
     n_stokes = pol.n
@@ -86,6 +87,7 @@ def make_radiance_fn(pol: Polarization, quad: QuadPoints, greeks, vza, vaz,
                                    for k in range(n_stokes)], axis=1))
 
     @jax.jit
+    @jax.default_matmul_precision(matmul_precision)
     def radiance(tau, omega, zw, albedo):
         R = jnp.zeros((len(vza), n_stokes, n_spec), dtype)
         for m in range(max_m):

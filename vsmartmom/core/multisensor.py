@@ -12,7 +12,7 @@ ref: src/CoreRT/rt_run_multisensor.jl:14-192,
      src/CoreRT/CoreKernel/interlayer_flux.jl:7-25,
      src/CoreRT/CoreKernel/rt_kernel_multisensor.jl (top/bot composition).
 
-TPU-native design: instead of the reference's per-sensor mutable top/bot
+Design: instead of the reference's per-sensor mutable top/bot
 composite pairs updated inside the layer loop (1.5k LoC), we run the layer
 scan in *segments* between consecutive sensor levels — forward from TOA for
 the top composites, reverse from the surface for the bot composites — so
@@ -30,7 +30,7 @@ import numpy as np
 
 from vsmartmom.core.rt import (bmv, interaction, make_added_layer,
                                make_rsolve, vacuum_layer)
-from vsmartmom.core.rt_run import BandRTInputs
+from vsmartmom.core.rt_run import BandRTInputs, default_solver
 from vsmartmom.core.surface import (brdf_surface_layer,
                                     lambertian_surface_layer)
 from vsmartmom.scattering.phase import Polarization, compute_Z_moments
@@ -142,7 +142,7 @@ def rt_run_band_ms(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     (ref: rt_run_multisensor.jl:14-192 rt_run_test_ms).
     """
     if solver is None:
-        solver = "lu" if jax.default_backend() == "cpu" else "schulz"
+        solver = default_solver(jax.default_backend())
     n_spec = band.tau.shape[1]
     n = len(quad.qp_mu_n)
     n_stokes = pol.n

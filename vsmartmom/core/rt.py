@@ -1,14 +1,15 @@
-"""TPU-native doubling-adding RT core (elemental / doubling / interaction).
+"""Doubling-adding RT core (elemental / doubling / interaction).
 
 This is a ground-up JAX re-design of the reference's CoreKernel
 (ref: src/CoreRT/CoreKernel/{elemental,doubling,interaction}.jl and
 src/CoreRT/rt_run.jl). Key departures from the CUDA/Julia architecture:
 
   * Arrays are batch-leading ``(nSpec, N, N)`` so every matrix product maps to
-    an XLA batched matmul on the MXU (the reference uses trailing-batch CUBLAS
-    strided calls).
+    an XLA batched matmul (the reference uses trailing-batch CUBLAS strided
+    calls).
   * Explicit inverses (CUBLAS getri) are replaced by batched LU solves
-    ``X A^{-1} = solve(A^T, X^T)^T`` — better numerically and on TPU.
+    ``X A^{-1} = solve(A^T, X^T)^T`` (better numerically) or by a
+    Newton-Schulz iteration of batched products.
   * Mutable layer structs + in-place kernels are replaced by an immutable
     pytree carried through ``lax.scan`` over atmospheric layers.
   * Per-layer doubling counts are traced scalars driving ``lax.fori_loop``
@@ -63,15 +64,14 @@ class LayerRTDev(NamedTuple):
     DIRECT-BEAM diagonal (pure exponentials exp(-tau/mu), shared by T^++
     and T^-- — the direct beam is reciprocal) and E the diffuse deviation.
     This is the classic direct/diffuse separation of RT, used here for a
-    TPU-numerics reason: every matrix product in doubling/interaction then
+    numerics reason: every matrix product in doubling/interaction then
     acts on diffuse-scale operands only, so (a) the ~1.0 identity diagonal
-    never rides a matmul — the 3-pass bf16x3 MXU mode's absolute error
-    floor (~2^-16 |A||B|, the dropped a_lo b_lo term) becomes RELATIVE to
-    the diffuse field instead of catastrophic (measured: plain bf16x3
-    fails the accuracy gates at 0.36 rel; split form passes), and (b) the
-    f32 floor of the doubling recursion itself improves ~4x (no repeated
-    near-identity cancellations). No reference counterpart — the reference
-    runs f64 CUBLAS (gpu_batched.jl) and never needed the split.
+    never rides a matmul — the absolute error floor of a reduced-precision
+    product (~2^-16 |A||B| for a 3-pass bf16 split) becomes RELATIVE to
+    the diffuse field instead of catastrophic, and (b) the f32 floor of
+    the doubling recursion itself improves (no repeated near-identity
+    cancellations). No reference counterpart — the reference runs f64
+    CUBLAS (gpu_batched.jl) and never needed the split.
     """
     r_mp: jnp.ndarray
     r_pm: jnp.ndarray
@@ -121,8 +121,8 @@ def _lu_apply(left, a, x):
     return bmm(rsolve_lu(left, a), x)
 
 
-# (left @ A^{-1}) @ x with solver-chosen association — the MXU-packing hook:
-# callers concatenate several right-hand operands into one x.
+# (left @ A^{-1}) @ x with solver-chosen association: callers concatenate
+# several right-hand operands into one x.
 rsolve_lu.apply = _lu_apply
 
 
@@ -131,14 +131,12 @@ def make_rsolve(solver: str = "lu", schulz_iters: int = 4):
     rho(B) < 1 (guaranteed for passive media: B is a product of reflection
     operators).
 
-    'lu'     — batched LU (fast LAPACK on CPU; pathologically slow on TPU,
-               where partial pivoting serializes: ~10x a matmul).
-    'schulz' — Newton-Schulz iteration, pure batched matmuls on the MXU.
+    'lu'     — batched LU (exact; LAPACK on CPU).
+    'schulz' — Newton-Schulz iteration, pure batched matmuls.
                M_0 = 2I - A (= I + B); residual after k iterations is
                B^(2^(k+1)): 4 iterations leave B^32 — < 1e-6 even for a
-               thick-cloud rho(B) = 0.64, and bit-identical to LU for the
-               Rayleigh-regime rho ~ 0.1 (measured on the TPU bench; the
-               5th iteration changed nothing but cost ~15% of the run).
+               thick-cloud rho(B) = 0.64, and at rounding level for the
+               Rayleigh-regime rho ~ 0.1.
     """
     if solver == "lu":
         return rsolve_lu
@@ -155,8 +153,8 @@ def make_rsolve(solver: str = "lu", schulz_iters: int = 4):
         return bmm(x, _schulz_m(a))
 
     def _schulz_apply(left, a, x):
-        # left @ (M @ x): keeps the wide packed operand x on the MXU lanes
-        # for both passes instead of materializing the n-wide left @ M.
+        # left @ (M @ x): the wide packed operand x rides both products
+        # instead of materializing the n-wide left @ M.
         return bmm(left, bmm(_schulz_m(a), x))
 
     rsolve_schulz.apply = _schulz_apply
@@ -189,8 +187,8 @@ def ns_doubling_schedule(tau_scat_bound: float, min_qp_mu: float,
     reflection operator is bounded by the worst-node plane albedo
     ||r|| <= 1 - exp(-2 tau_k / mu_min), so rho(r r) <= that squared.
     Early (thin) steps need 0-1 iterations; only the last few need the
-    full count — ~40% fewer MXU passes per layer at identical results
-    (residual kept below f32 rounding).
+    full count — ~40% fewer matrix products per layer at identical
+    results (residual kept below f32 rounding).
     """
     sched = []
     for k in range(ndoubl):
@@ -244,8 +242,8 @@ def doubling_number(dtau_max, tau_end):
 def exp_small(x):
     """e^x for the tiny per-step arguments of the elemental layer.
 
-    TPU f32 jnp.exp rounds to ~2e-6 relative; the doubling recursion
-    compounds that error 2^ndoubl-fold (~1% at ndoubl=13, grazing mu).
+    An f32 exp that rounds to ~2e-6 relative would be compounded
+    2^ndoubl-fold by the doubling recursion (~1% at ndoubl=13, grazing mu).
     1 + expm1(x) is correctly rounded near zero (absolute error ~1e-9) and
     algebraically identical. Large-argument exponentials (tau_sum
     attenuation) keep plain exp.
@@ -296,8 +294,8 @@ def elemental(dtau, omega, z_pp, z_mp, qp, wct2, wct02, tau_sum,
     denom = jnp.where(same_mu, 1.0, mu_i - mu_j)
     # expm1 argument as ONE subtraction of exact node values: computing
     # dt/mu_j - dt/mu_i from two rounded quotients cancels catastrophically
-    # for adjacent nodes on TPU f32 (approximate division) — dt (mu_i -
-    # mu_j)/(mu_i mu_j) is algebraically identical and rounds once.
+    # for adjacent nodes in f32 — dt (mu_i - mu_j)/(mu_i mu_j) is
+    # algebraically identical and rounds once.
     exp_diff = (exp_small(-dt / mu_j)
                 * jnp.expm1(dt * (mu_i - mu_j) / (mu_i * mu_j)))
     t_off = om * z_pp * (mu_j / denom) * wct2[None, None, :] * exp_diff
@@ -365,17 +363,16 @@ def doubling(r_mp_f, t_pp, j_p, j_m_f, expk, ndoubl, eye, rsolve=rsolve_lu,
     doubling recursion needs only one reflection operator (D-symmetry trick,
     ref: doubling.jl:43-68). ``ndoubl`` may be a traced scalar (lowers to a
     while_loop, forward-mode differentiable) or a Python int (statically
-    unrolled: XLA pipelines it ~6% faster on TPU and it is reverse-mode
-    differentiable too). ``ns_schedule`` (unrolled path only): per-step
+    unrolled; reverse-mode differentiable too). ``ns_schedule`` (unrolled path only): per-step
     Newton-Schulz iteration counts from ns_doubling_schedule, overriding
     ``rsolve`` step by step.
     """
     def body(state, step_rsolve):
-        # MXU lane packing (see pallas/doubling_kernel.py for the cost
-        # model): every right-hand operand sharing a left matrix rides one
-        # matmul pass — r @ [t | jp | j1m], then tt @ [r t | t | v1 | v2]
-        # with tt = t (I - r r)^{-1} never materialized (solver .apply
-        # chooses the association). 5+2k passes/step instead of 9+2k.
+        # Operand packing: every right-hand operand sharing a left matrix
+        # rides one batched product — r @ [t | jp | j1m], then
+        # tt @ [r t | t | v1 | v2] with tt = t (I - r r)^{-1} never
+        # materialized (solver .apply chooses the association).
+        # 5+2k products/step instead of 9+2k.
         r, t, jp, jm, ek = state
         n = r.shape[-1]
         j1p = jp * ek[:, None]
@@ -416,7 +413,7 @@ def elemental_flipped(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
                       min_qp_mu, ndoubl_static=None):
     """Elemental single-scattering layer in flipped (D-symmetry) space,
     plus the doubling inputs (expk, ndoubl). Shared by make_added_layer and
-    the fused Pallas layer-step path (pallas/layer_step_kernel.py).
+    the fused layer-step kernel path (pallas/layer_step_kernel.py).
     ref: src/CoreRT/CoreKernel/rt_kernel.jl:238-275 (init_layer)
     """
     if ndoubl_static is not None:
@@ -426,7 +423,7 @@ def elemental_flipped(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
         tau_scat_max = jnp.max(tau * omega)
         # Elemental step 0.004*min(mu): single-scatter error O((dtau/mu)^2)
         # stays < ~3e-5 of radiance (measured f64), 2 fewer doublings/layer
-        # than the reference's 0.001 factor (~20% of TPU runtime).
+        # than the reference's 0.001 factor.
         dtau_max = jnp.minimum(tau_scat_max, 0.004 * min_qp_mu)
         ndoubl = doubling_number(dtau_max, tau_scat_max)
         scale = 2.0 ** ndoubl.astype(tau.dtype)
@@ -445,9 +442,7 @@ def elemental_flipped(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
 def make_added_layer(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
                      i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec,
                      min_qp_mu, eye, rsolve=rsolve_lu,
-                     ndoubl_static=None, ns_schedule=None,
-                     doubling_engine="xla",
-                     matmul_precision="highest") -> LayerRT:
+                     ndoubl_static=None, ns_schedule=None) -> LayerRT:
     """Elemental + doubling for one atmospheric layer -> full added layer.
 
     tau/omega: (nSpec,) per-wavelength optical depth & single-scatter albedo.
@@ -459,18 +454,9 @@ def make_added_layer(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
         tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02, i0_vec, i_mu0_n,
         n_stokes, mu0_node, mu0, d_vec, min_qp_mu,
         ndoubl_static=ndoubl_static)
-    if (doubling_engine in ("pallas", "pallas_interpret")
-            and isinstance(ndoubl, int) and ns_schedule is not None):
-        # fused VMEM-resident kernel (forward runs only — not differentiable)
-        from vsmartmom.pallas.doubling_kernel import fused_doubling
-        r_f, t_pp, j_p, jm_f = fused_doubling(
-            r_f, t_pp, j_p, jm_f, expk, ns_schedule=tuple(ns_schedule),
-            interpret=(doubling_engine == "pallas_interpret"),
-            precision_name=matmul_precision)
-    else:
-        r_f, t_pp, j_p, jm_f = doubling(r_f, t_pp, j_p, jm_f, expk, ndoubl,
-                                        eye, rsolve=rsolve,
-                                        ns_schedule=ns_schedule)
+    r_f, t_pp, j_p, jm_f = doubling(r_f, t_pp, j_p, jm_f, expk, ndoubl,
+                                    eye, rsolve=rsolve,
+                                    ns_schedule=ns_schedule)
     r_mp = d_vec[None, :, None] * r_f
     j_m = d_vec[None, :] * jm_f
 
@@ -490,11 +476,9 @@ def interaction(comp: LayerRT, added: LayerRT, eye, rsolve=rsolve_lu) -> LayerRT
     shortcuts are algebraic special cases of this path.
     ref: src/CoreRT/CoreKernel/interaction.jl:69-117
     """
-    # NOTE: no MXU lane packing here on purpose — in the XLA path the
-    # concatenated operands materialize in HBM and the extra traffic costs
-    # more than the saved passes (measured -12% on the TPU bench). The
-    # packed variant lives in pallas/interaction_kernel.py where the
-    # operands stay in VMEM.
+    # No operand packing here: in the XLA path the concatenated operands
+    # materialize in device memory. The fused layer-step kernel
+    # (pallas/layer_step_kernel.py) keeps them on-chip instead.
     a1 = eye - bmm(added.r_mp, comp.r_pm)
     t01 = rsolve(comp.t_mm, a1)               # T^--_comp (I - r R)^{-1}
     j_m = comp.j_m + bmv(t01, bmv(added.r_mp, comp.j_p) + added.j_m)
@@ -518,8 +502,8 @@ def interaction(comp: LayerRT, added: LayerRT, eye, rsolve=rsolve_lu) -> LayerRT
 # Y-form: (I - B)^{-1} = I + Y with Y_0 = B, Y <- W + Y(W - Y), W = B + B Y
 # (algebraically the plain iteration with the identity handled exactly).
 # Matmul operands never contain the ~1.0 direct-transmission diagonal, which
-# (a) removes the bf16x3 absolute error floor and (b) improves the plain-f32
-# floor ~4x (measured; docs/PERF_NOTES.md round 4).
+# (a) removes the absolute error floor of reduced-precision products and
+# (b) improves the plain-f32 floor of the recursion.
 
 def ns_y(rr, iters, mm=bmm):
     """Y-form Newton-Schulz: Y ~= (I - B)^{-1} - I for B = rr, rho(B) < 1.
@@ -551,8 +535,7 @@ def doubling_dev(r_f, g, e_pp, j_p, j_m_f, expk, ns_schedule=None,
     """
     r, ge, e = r_f, g, e_pp
     jp, jm, ek = j_p, j_m_f, expk
-    if ek.ndim == 1:
-        ek = ek[:, None]        # Pallas callers pass (S, 1)/(S, pN) blocks
+    ek = ek[:, None]
     steps = (ns_schedule if ns_schedule is not None
              else [None] * int(ndoubl))
     n = r.shape[-1]
@@ -590,8 +573,7 @@ def elemental_flipped_dev(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
                           i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec,
                           ndoubl_static):
     """Split-form elemental layer in flipped (D-symmetry) space + doubling
-    inputs — the dev twin of elemental_flipped, feeding
-    pallas.layer_step_kernel.fused_layer_step_dev."""
+    inputs — the dev twin of elemental_flipped."""
     ndoubl = int(ndoubl_static)
     dtau = tau / 2.0 ** ndoubl
     expk = exp_small(-dtau / mu0)
@@ -627,7 +609,7 @@ def make_added_layer_dev(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
 def interaction_dev(comp: LayerRTDev, added: LayerRTDev, ni=None,
                     exact_eye=None, mm=bmm) -> LayerRTDev:
     """Adding/interaction in split form (push-through single-solve variant,
-    twin of pallas/layer_step_kernel.py's interaction block).
+    the same algebra as pallas/layer_step_kernel.py's interaction block).
 
     ``ni``: Newton-Schulz iterations for (I - r2 R)^{-1} (schulz), or None
     with ``exact_eye`` for the exact-LU twin. Composite direct diagonal

@@ -1,6 +1,6 @@
 """Inelastic (Raman) doubling-adding RT core.
 
-TPU-native design. The reference implements ~2000 lines of index-shifted
+Design. The reference implements ~2000 lines of index-shifted
 CUDA kernels for the Raman-coupled doubling/adding equations
 (ref: src/CoreRT/CoreKernel/{elemental,doubling,interaction}_inelastic.jl
  and the concatenated-band variants *_inelastic_plus.jl).
@@ -50,23 +50,24 @@ from jax import lax
 
 from vsmartmom.core.rt import (LayerRT, bmm, bmv, doubling_number, elemental,
                                interaction, make_rsolve, vacuum_layer)
+from vsmartmom.core.rt_run import default_solver
+
+
+#: Default precision of the ie products (see bmm_ie; PERF.md has the
+#: f32-vs-f64 errors and times of "highest" and "high" on an H100).
+IE_PRECISION = "highest"
 
 
 def bmm_ie(a, b):
     """Batched matmul for the first-order (ie) operands. The ie operators
     are perturbation-scale (no ~1.0 transmission diagonal rides these
-    products), so the 3-pass bf16x3 MXU mode's absolute floor
-    (~2^-16 |A||B|) is small RELATIVE to the ie result — the same argument
-    that makes the dev-form engines bf16x3-safe. Env
-    VSM_RAMAN_IE_PRECISION: highest (default) | high (bf16x3) | default
-    (1-pass bf16). Read at trace time."""
-    # Measured on TPU (same-session A/B, nSpec=2048, nR=172): highest
-    # 107.8 pts/s; high (bf16x3) 110.7 at 2.8e-5 rel on ieR (negligible —
-    # DEFAULT); 1-pass bf16 138.3 (+28%) at 8.5e-4 rel on the Raman
-    # correction (~1e-6 of total radiance) — opt-in for throughput.
+    products), so a reduced-precision product's absolute floor is small
+    RELATIVE to the ie result. Env VSM_RAMAN_IE_PRECISION: highest
+    (IEEE f32) | high | default (the backend's fastest f32 mode, TF32 on
+    the GPU); IE_PRECISION when unset. Read at trace time."""
     prec = {"highest": lax.Precision.HIGHEST, "high": lax.Precision.HIGH,
             "default": lax.Precision.DEFAULT}[
-        os.environ.get("VSM_RAMAN_IE_PRECISION", "high")]
+        os.environ.get("VSM_RAMAN_IE_PRECISION", IE_PRECISION)]
     return jnp.matmul(a, b, precision=prec)
 
 
@@ -254,11 +255,9 @@ def raman_doubling(r, t, jp, jm, ek, ier, iet, iejp, iejm, shifts, ndoubl,
     # re-running the solve at the gathered points, at a fraction of the
     # matmuls (M(gather(A)) == gather(M(A)), since the Newton-Schulz field
     # is pointwise in the spectral batch). LU has no cheap M; it keeps the
-    # per-shift solve. Measured on TPU (bench raman_rrs): 60.4 -> 100.6
-    # pts/s. (Lane-packing the per-shift products was also tried and made
-    # it WORSE — 57-69 pts/s — the materialized concats blow HBM traffic
-    # and peak memory, the same result the elastic XLA interaction path
-    # documents; keep the products separate here.)
+    # per-shift solve. (Packing the per-shift products into one operand
+    # materializes the concatenations in device memory, as in the elastic
+    # XLA interaction path; the products stay separate here.)
     def body(_, state, rsolve=rsolve,
              m_fn=getattr(rsolve, "materialize_m", None)):
         r, t, jp, jm, ek, ier, iet, iejp, iejm = state
@@ -347,7 +346,7 @@ def raman_make_added_layer(tau, omega, z_pp, z_mp, z_pp_r, z_mp_r, tau_sum,
         tau_scat_max = jnp.max(tau * omega)
         # Elemental step 0.004*min(mu): single-scatter error O((dtau/mu)^2)
         # stays < ~3e-5 of radiance (measured f64), 2 fewer doublings/layer
-        # than the reference's 0.001 factor (~20% of TPU runtime).
+        # than the reference's 0.001 factor.
         dtau_max = jnp.minimum(tau_scat_max, 0.004 * min_qp_mu)
         ndoubl = doubling_number(dtau_max, tau_scat_max)
         scale = 2.0 ** ndoubl.astype(dtype)
@@ -628,7 +627,7 @@ def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
     from vsmartmom.util.quadrature import nearest_point
 
     if solver is None:
-        solver = "lu" if jax.default_backend() == "cpu" else "schulz"
+        solver = default_solver(jax.default_backend())
     specs = rrs if isinstance(rrs, (list, tuple)) else [rrs]
     n_spec = band.tau.shape[1]
     n = len(quad.qp_mu_n)
@@ -636,22 +635,14 @@ def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
     vza = np.asarray(vza, dtype=np.float64)
     vaz = np.asarray(vaz, dtype=np.float64)
 
-    # production (schulz/TPU) path: static per-layer doubling schedules.
-    # UNLIKE the elastic engines' builder these are NOT quantized up — the
-    # quantization exists to cap Mosaic kernel instances, but the Raman
-    # path is XLA-only and every extra doubling step multiplies the
-    # per-shift work by nR (~170 rows): quantized schedules measured
-    # SLOWER than the traced loop (86 vs 101 pts/s); exact-nd buckets keep
-    # the traced path's step counts and add the scheduled-NS savings.
-    # The LU/CPU path keeps the traced-ndoubl loop (bitwise vs the
-    # brute-force gates).
+    # Optional static per-layer doubling schedules (VSM_RAMAN_SCHED=1,
+    # schulz only). UNLIKE the elastic engines' builder these are NOT
+    # quantized up: every extra doubling step multiplies the per-shift
+    # work by nR (~170 rows), so exact-nd buckets keep the traced path's
+    # step counts and add the scheduled-NS savings. The default is the
+    # traced-ndoubl fori_loop, whose while-loop buffer aliasing suits the
+    # large ie carry; which is faster on the GPU is not measured yet.
     layer_schedules = None
-    # Static scheduled-NS buckets measured SLOWER than the traced
-    # fori_loop on TPU for this path (86 vs 108 pts/s, same session, even
-    # at identical nd and ~3x fewer NS iterations): XLA's while-loop
-    # buffer aliasing beats the unrolled chain for the ~0.5 GB ie carry
-    # (the unrolled graph shows a 32% HBM-copy share in the profile).
-    # Opt-in via VSM_RAMAN_SCHED=1 for future re-measurement.
     if solver == "schulz" and os.environ.get("VSM_RAMAN_SCHED") == "1":
         layer_schedules = _raman_layer_schedules(
             np.asarray(band.tau), np.asarray(band.omega),
@@ -872,7 +863,7 @@ def rt_run_band_rrs_ms(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
     from vsmartmom.util.quadrature import nearest_point
 
     if solver is None:
-        solver = "lu" if jax.default_backend() == "cpu" else "schulz"
+        solver = default_solver(jax.default_backend())
     specs = rrs if isinstance(rrs, (list, tuple)) else [rrs]
     n_spec = band.tau.shape[1]
     n = len(quad.qp_mu_n)

@@ -1,6 +1,6 @@
 """rt_run: the forward RT simulation driver.
 
-TPU-native pipeline (ref: src/CoreRT/rt_run.jl:41-230):
+Pipeline (ref: src/CoreRT/rt_run.jl:41-230):
   for each Fourier moment m:
     - assemble Z component matrices (host, numpy)  [setup]
     - one jitted device step: lax.scan over layers (elemental -> doubling ->
@@ -8,12 +8,13 @@ TPU-native pipeline (ref: src/CoreRT/rt_run.jl:41-230):
     - azimuthal synthesis of the small (n_vza, n_stokes, nSpec) outputs
 
 The spectral axis (nSpec) is the batch/sharding axis: every op inside the
-jitted step is batched over it, so a NamedSharding over nSpec scales it
-across a TPU slice with zero collectives (elastic path).
+jitted step is batched over it, so rt_run_band(..., mesh=) runs each
+device's slice under shard_map with zero collectives (elastic path).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from functools import partial
 from typing import Optional
@@ -52,20 +53,18 @@ class BandRTInputs:
 @partial(jax.jit, static_argnames=("i_mu0_n", "n_stokes", "is_m0", "n_spec",
                                    "solver", "ndoubl_static",
                                    "ns_schedule", "doubling_engine",
-                                   "matmul_precision", "layer_schedules",
-                                   "dd_precision"))
+                                   "matmul_precision", "layer_schedules"))
 def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                   albedo, spectral_albedo, mu0, mu0_node, min_qp_mu,
                   rho_brdf=None,
                   *, i_mu0_n, n_stokes, is_m0, n_spec, solver="lu",
                   ndoubl_static=None, ns_schedule=None,
                   doubling_engine="xla", matmul_precision="highest",
-                  layer_schedules=None, dd_precision="bf16x3"):
+                  layer_schedules=None):
     """One Fourier moment: layer scan + surface. Returns composite layer."""
     # The doubling recursion amplifies rounding over ~10 iterations/layer:
-    # never let the TPU default drop matmul inputs to 1-pass bf16.
-    # 'highest' = true-f32 MXU passes; 'high' = 3-pass bf16 (f32-equivalent
-    # mantissa via error-compensated passes, ~2x the throughput).
+    # never let an f32 product drop to a reduced-precision default
+    # (TF32 on the GPU). 'highest' = IEEE f32 products.
     with jax.default_matmul_precision(matmul_precision):
         return _fourier_step_body(
             tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec, albedo,
@@ -75,7 +74,21 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
             ndoubl_static=ndoubl_static, ns_schedule=ns_schedule,
             doubling_engine=doubling_engine,
             matmul_precision=matmul_precision,
-            layer_schedules=layer_schedules, dd_precision=dd_precision)
+            layer_schedules=layer_schedules)
+
+
+def _buckets(layer_schedules):
+    """Runs of consecutive layers sharing one static (nd, sched, ni):
+    (nd, sched, ni, start, count). Each run is one lax.scan, so the program
+    holds one layer-step instance per run, not per layer."""
+    out = []
+    for iz, (nd_z, sched_z, ni_z) in enumerate(layer_schedules):
+        sc = tuple(sched_z) if sched_z is not None else None
+        if out and out[-1][:3] == (nd_z, sc, ni_z):
+            out[-1] = out[-1][:4] + (out[-1][4] + 1,)
+        else:
+            out.append((nd_z, sc, ni_z, iz, 1))
+    return out
 
 
 def _fourier_step_body(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
@@ -84,7 +97,7 @@ def _fourier_step_body(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                        *, i_mu0_n, n_stokes, is_m0, n_spec, solver="lu",
                        ndoubl_static=None, ns_schedule=None,
                        doubling_engine="xla", matmul_precision="highest",
-                       layer_schedules=None, dd_precision="bf16x3"):
+                       layer_schedules=None):
     rsolve = make_rsolve(solver)
     dtype = tau.dtype
     n = qp.shape[0]
@@ -96,113 +109,65 @@ def _fourier_step_body(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
     tau_sum_all = jnp.concatenate(
         [jnp.zeros((1, tau.shape[1]), dtype), jnp.cumsum(tau, axis=0)], axis=0)
 
-    if (doubling_engine in ("pallas_lanes", "pallas_lanes_interpret")
-            and layer_schedules is None and ndoubl_static is not None
-            and ns_schedule is not None):
-        # uniform-profile case: one schedule for every layer
-        layer_schedules = ((int(ndoubl_static),
-                            tuple(ns_schedule), 4),) * int(tau.shape[0])
+    if (layer_schedules is None and ndoubl_static is not None
+            and doubling_engine in ("xla_dev", "pallas_step",
+                                    "pallas_step_interpret")):
+        # uniform profile: one (nd, NS-schedule) for every layer
+        sched = tuple(ns_schedule) if ns_schedule is not None else None
+        layer_schedules = ((int(ndoubl_static), sched, 4),) * int(tau.shape[0])
 
-    if doubling_engine in ("pallas_dd", "pallas_dd_interpret", "xla_dev"):
-        # Direct/diffuse split ("deviation form") engines: the same
-        # doubling-adding algebra with T = diag(g) + E carried split, so
-        # no matmul operand contains the ~1.0 direct diagonal. The Pallas
-        # variant runs its matmuls in 3-pass bf16x3 (safe ONLY in this
-        # form — docs/PERF_NOTES.md round 4); the XLA variant is its exact
-        # twin for CPU tests / interpret-free fallback.
-        from vsmartmom.core.rt import (dev_to_full, elemental_flipped_dev,
-                                       interaction_dev, make_added_layer_dev,
-                                       vacuum_layer_dev)
-        use_pallas = doubling_engine.startswith("pallas_dd")
-        interp = doubling_engine.endswith("interpret")
-        if use_pallas:
-            from vsmartmom.pallas.layer_step_kernel import fused_layer_step_dev
+    if doubling_engine == "xla_dev":
+        # Direct/diffuse split ("deviation form") engine: the same
+        # doubling-adding algebra with T = diag(g) + E carried split, so no
+        # matmul operand contains the ~1.0 direct diagonal (a lower f32
+        # floor than the plain algebra at large N).
+        from vsmartmom.core.rt import (dev_to_full, interaction_dev,
+                                       make_added_layer_dev, vacuum_layer_dev)
         if layer_schedules is None:
-            if ndoubl_static is None:
-                raise ValueError(
-                    "dev-form engines need a static doubling schedule")
-            sched = tuple(ns_schedule) if ns_schedule is not None else None
-            layer_schedules = ((int(ndoubl_static), sched, 4),
-                               ) * int(tau.shape[0])
-        buckets = []
-        for iz, (nd_z, sched_z, ni_z) in enumerate(layer_schedules):
-            sc = tuple(sched_z) if sched_z is not None else None
-            if buckets and buckets[-1][0] == nd_z \
-                    and buckets[-1][1] == sc and buckets[-1][2] == ni_z:
-                buckets[-1] = buckets[-1][:4] + (buckets[-1][4] + 1,)
-            else:
-                buckets.append((nd_z, sc, ni_z, iz, 1))
+            raise ValueError("xla_dev needs a static doubling schedule")
         comp = vacuum_layer_dev(n_spec, n, dtype)
         schulz = solver == "schulz"
-        for nd_z, sched_z, ni_z, start, count in buckets:
+        for nd_z, sched_z, ni_z, start, count in _buckets(layer_schedules):
+            # buckets without an NS schedule (lu solver, or a builder
+            # fallback entry) solve exactly
+            exact = (not schulz) or sched_z is None
             def scan_body_dev(carry, inputs, _nd=nd_z, _sched=sched_z,
-                              _ni=ni_z):
+                              _ni=ni_z, _exact=exact):
                 tau_z, omega_z, zw_z, tau_sum_z = inputs
                 z_pp = jnp.einsum("kn,kij->nij", zw_z, z_pp_c)
                 z_mp = jnp.einsum("kn,kij->nij", zw_z, z_mp_c)
-                # The fused Pallas kernel implements only the Newton-
-                # Schulz solver; buckets without an NS schedule (lu
-                # solver, or a builder fallback entry) take the exact-LU
-                # xla_dev twin instead of crashing on ns_schedule=None.
-                if use_pallas and _sched is not None:
-                    r_f, g_el, e_el, jp, jm_f, ek = elemental_flipped_dev(
-                        tau_z, omega_z, z_pp, z_mp, tau_sum_z, qp, wct2,
-                        wct02, i0_vec, i_mu0_n, n_stokes, mu0_node, mu0,
-                        d_vec, _nd)
-                    new = fused_layer_step_dev(
-                        carry, r_f, g_el, e_el, jp, jm_f, ek, d_vec,
-                        ns_schedule=_sched, ni=_ni, interpret=interp,
-                        precision_name=dd_precision)
-                else:
-                    exact = (not schulz) or _sched is None
-                    added = make_added_layer_dev(
-                        tau_z, omega_z, z_pp, z_mp, tau_sum_z, qp, wct2,
-                        wct02, i0_vec, i_mu0_n, n_stokes, mu0_node, mu0,
-                        d_vec, min_qp_mu, ndoubl_static=_nd,
-                        ns_schedule=None if exact else _sched,
-                        exact_eye=eye if exact else None)
-                    new = interaction_dev(
-                        carry, added, ni=None if exact else _ni,
-                        exact_eye=eye if exact else None)
+                added = make_added_layer_dev(
+                    tau_z, omega_z, z_pp, z_mp, tau_sum_z, qp, wct2,
+                    wct02, i0_vec, i_mu0_n, n_stokes, mu0_node, mu0,
+                    d_vec, min_qp_mu, ndoubl_static=_nd,
+                    ns_schedule=None if _exact else _sched,
+                    exact_eye=eye if _exact else None)
+                new = interaction_dev(
+                    carry, added, ni=None if _exact else _ni,
+                    exact_eye=eye if _exact else None)
                 return new, None
             sl = slice(start, start + count)
             comp, _ = jax.lax.scan(
                 scan_body_dev, comp,
                 (tau[sl], omega[sl], zw[sl], tau_sum_all[sl]))
         comp = dev_to_full(comp)
-    elif (doubling_engine in ("pallas_step", "pallas_step_interpret",
-                              "pallas_lanes", "pallas_lanes_interpret")
-            and layer_schedules is not None):
-        # Per-layer static (ndoubl, NS-schedule). Consecutive layers with
-        # the same schedule are bucketed into one lax.scan, so the program
-        # holds one fused-kernel (Mosaic) instance per DISTINCT schedule
-        # run — a 34-layer profile compiles ~6 kernels, not 34.
+    elif doubling_engine in ("pallas_step", "pallas_step_interpret"):
+        # Doubling + interaction fused per layer in one Triton kernel;
+        # elemental stays XLA (elementwise, fuses fine). The composite is
+        # carried at the kernel's padded size across the whole scan.
         from vsmartmom.core.rt import elemental_flipped
-        interp = doubling_engine.endswith("interpret")
-        lanes = doubling_engine.startswith("pallas_lanes")
-        if lanes:
-            from vsmartmom.pallas.lanes_kernel import (fused_layer_step_lanes,
-                                                       from_lanes_m,
-                                                       from_lanes_v,
-                                                       to_lanes_m, to_lanes_v)
-        else:
-            from vsmartmom.pallas.layer_step_kernel import fused_layer_step
-
-        buckets = []          # (nd, sched, ni, start, count)
-        for iz, (nd_z, sched_z, ni_z) in enumerate(layer_schedules):
-            if buckets and buckets[-1][0] == nd_z \
-                    and buckets[-1][1] == tuple(sched_z) \
-                    and buckets[-1][2] == ni_z:
-                buckets[-1] = buckets[-1][:4] + (buckets[-1][4] + 1,)
-            else:
-                buckets.append((nd_z, tuple(sched_z), ni_z, iz, 1))
-
-        comp = vacuum_layer(n_spec, n, dtype)
-        if lanes:
-            # composite stays in lanes layout (N, N, S) across the scan
-            comp = LayerRT(*(to_lanes_m(m) for m in comp[:4]),
-                           *(to_lanes_v(v) for v in comp[4:]))
-        for nd_z, sched_z, ni_z, start, count in buckets:
+        from vsmartmom.pallas.layer_step_kernel import (fused_layer_step,
+                                                        pad_layer,
+                                                        padded_n,
+                                                        unpad_layer)
+        if layer_schedules is None or any(
+                s is None for _, s, _ in layer_schedules):
+            raise ValueError(
+                "pallas_step needs the schulz solver's static doubling "
+                "schedules")
+        interp = doubling_engine == "pallas_step_interpret"
+        comp = pad_layer(vacuum_layer(n_spec, n, dtype), padded_n(n))
+        for nd_z, sched_z, ni_z, start, count in _buckets(layer_schedules):
             def scan_body(carry, inputs, _nd=nd_z, _sched=sched_z,
                           _ni=ni_z):
                 tau_z, omega_z, zw_z, tau_sum_z = inputs
@@ -212,106 +177,24 @@ def _fourier_step_body(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                     tau_z, omega_z, z_pp, z_mp, tau_sum_z, qp, wct2,
                     wct02, i0_vec, i_mu0_n, n_stokes, mu0_node, mu0,
                     d_vec, min_qp_mu, ndoubl_static=_nd)
-                if lanes:
-                    new = fused_layer_step_lanes(
-                        carry, to_lanes_m(r_f), to_lanes_m(t),
-                        to_lanes_v(jp), to_lanes_v(jm_f), ek, d_vec,
-                        ns_schedule=_sched, ni=_ni, interpret=interp)
-                else:
-                    new = fused_layer_step(
-                        carry, r_f, t, jp, jm_f, ek, d_vec,
-                        ns_schedule=_sched, ni=_ni, interpret=interp,
-                        precision_name=matmul_precision)
+                new = fused_layer_step(
+                    carry, r_f, t, jp, jm_f, ek, d_vec,
+                    ns_schedule=_sched, ni=_ni, interpret=interp)
                 return new, None
             sl = slice(start, start + count)
             comp, _ = jax.lax.scan(
                 scan_body, comp,
                 (tau[sl], omega[sl], zw[sl], tau_sum_all[sl]))
-        if lanes:
-            comp = LayerRT(*(from_lanes_m(m) for m in comp[:4]),
-                           *(from_lanes_v(v) for v in comp[4:]))
-    elif (doubling_engine in ("pallas_step", "pallas_step_interpret")
-            and ndoubl_static is not None and ns_schedule is not None):
-        # doubling + interaction fused per layer in one VMEM-resident
-        # Pallas kernel; elemental stays XLA (elementwise, fuses fine)
-        from vsmartmom.core.rt import elemental_flipped
-        from vsmartmom.pallas.layer_step_kernel import fused_layer_step
-        interp = doubling_engine == "pallas_step_interpret"
-
-        def scan_body_fused(carry, inputs):
-            tau_z, omega_z, zw_z, tau_sum_z = inputs
-            z_pp = jnp.einsum("kn,kij->nij", zw_z, z_pp_c)
-            z_mp = jnp.einsum("kn,kij->nij", zw_z, z_mp_c)
-            r_f, t, jp, jm_f, ek, _ = elemental_flipped(
-                tau_z, omega_z, z_pp, z_mp, tau_sum_z, qp, wct2, wct02,
-                i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec, min_qp_mu,
-                ndoubl_static=ndoubl_static)
-            comp = fused_layer_step(
-                carry, r_f, t, jp, jm_f, ek, d_vec,
-                ns_schedule=tuple(ns_schedule), ni=4, interpret=interp,
-                precision_name=matmul_precision)
-            return comp, None
-
-        init = vacuum_layer(n_spec, n, dtype)
-        comp, _ = jax.lax.scan(scan_body_fused, init,
-                               (tau, omega, zw, tau_sum_all[:-1]))
-    elif (doubling_engine in ("pallas_scan", "pallas_scan_interpret")
-            and (layer_schedules is not None
-                 or (ndoubl_static is not None and ns_schedule is not None))):
-        # Whole layer loop fused in VMEM-resident Pallas kernels: one
-        # kernel per schedule BUCKET (consecutive layers sharing a static
-        # (ndoubl, NS-schedule, ni)), the composite chained kernel-to-
-        # kernel through HBM (~3 round trips per moment instead of one
-        # per layer) — elemental construction, doubling, and interaction
-        # all live inside the kernel, eliminating the scan-body XLA share
-        # around the per-layer fused-step kernels.
-        from vsmartmom.pallas.layer_scan_kernel import fused_layer_scan
-        if layer_schedules is None:
-            layer_schedules = ((int(ndoubl_static), tuple(ns_schedule), 4),
-                               ) * int(tau.shape[0])
-        buckets = []          # (nd, sched, ni, start, count)
-        for iz, (nd_z, sched_z, ni_z) in enumerate(layer_schedules):
-            if sched_z is None:
-                raise ValueError("pallas_scan requires the schulz solver's "
-                                 "per-layer NS schedules")
-            if buckets and buckets[-1][0] == nd_z \
-                    and buckets[-1][1] == tuple(sched_z) \
-                    and buckets[-1][2] == ni_z:
-                buckets[-1] = buckets[-1][:4] + (buckets[-1][4] + 1,)
-            else:
-                buckets.append((nd_z, tuple(sched_z), ni_z, iz, 1))
-        comp = jax.tree.map(lambda x: x.astype(jnp.float32),
-                            vacuum_layer(n_spec, n, dtype))
-        scan_block = int(os.environ.get("VSM_SCAN_BLOCK", "16"))
-        for nd_z, sched_z, ni_z, start, count in buckets:
-            sl = slice(start, start + count)
-            comp = fused_layer_scan(
-                comp, tau[sl], omega[sl], zw[sl], tau_sum_all[sl],
-                z_pp_c, z_mp_c, qp, wct2, i0_vec, d_vec, mu0, mu0_node,
-                0.5 if is_m0 else 0.25,
-                ns_schedule=sched_z, i_mu0_n=i_mu0_n, n_stokes=n_stokes,
-                inter_iters=ni_z, block_s=scan_block,
-                interpret=(doubling_engine == "pallas_scan_interpret"))
-        comp = jax.tree.map(lambda x: x.astype(dtype), comp)
+        comp = unpad_layer(comp, n)
     elif layer_schedules is not None:
         # XLA engine with the SAME per-layer static (ndoubl, NS-schedule)
-        # bucketing as the fused Pallas path — identical discretization, so
-        # the two engines agree to f32 rounding (exercised by the bucketed
-        # engine check, tools/check_bucketed.py, and the Pallas fallback).
-        buckets = []
-        for iz, (nd_z, sched_z, ni_z) in enumerate(layer_schedules):
-            if buckets and buckets[-1][0] == nd_z \
-                    and buckets[-1][1] == tuple(sched_z) \
-                    and buckets[-1][2] == ni_z:
-                buckets[-1] = buckets[-1][:4] + (buckets[-1][4] + 1,)
-            else:
-                buckets.append((nd_z, tuple(sched_z), ni_z, iz, 1))
+        # bucketing as the fused kernel path — identical discretization, so
+        # the two engines agree to f32 rounding.
         comp = vacuum_layer(n_spec, n, dtype)
-        for nd_z, sched_z, ni_z, start, count in buckets:
+        for nd_z, sched_z, ni_z, start, count in _buckets(layer_schedules):
             # per-bucket interaction solver: schulz gets the layer's static
-            # NS iteration count (same ni the fused Pallas kernel uses, so
-            # the two engines keep identical discretization); LU is exact
-            # and ignores ni.
+            # NS iteration count (same ni the fused kernel uses); LU is
+            # exact and ignores ni.
             irs = (make_rsolve("schulz", ni_z) if solver == "schulz"
                    else rsolve)
             def scan_body(carry, inputs, _nd=nd_z, _sched=sched_z,
@@ -323,8 +206,7 @@ def _fourier_step_body(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                     tau_z, omega_z, z_pp, z_mp, tau_sum_z, qp, wct2, wct02,
                     i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec,
                     min_qp_mu, eye, rsolve=rsolve, ndoubl_static=_nd,
-                    ns_schedule=_sched, doubling_engine="xla",
-                    matmul_precision=matmul_precision)
+                    ns_schedule=_sched)
                 return interaction(carry, added, eye, rsolve=_irs), None
             sl = slice(start, start + count)
             comp, _ = jax.lax.scan(
@@ -339,8 +221,7 @@ def _fourier_step_body(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                 tau_z, omega_z, z_pp, z_mp, tau_sum_z, qp, wct2, wct02,
                 i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec, min_qp_mu,
                 eye, rsolve=rsolve, ndoubl_static=ndoubl_static,
-                ns_schedule=ns_schedule, doubling_engine=doubling_engine,
-                matmul_precision=matmul_precision)
+                ns_schedule=ns_schedule)
             return interaction(carry, added, eye, rsolve=rsolve), None
 
         init = vacuum_layer(n_spec, n, dtype)
@@ -365,8 +246,8 @@ def _fourier_step_body(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
     return comp, hdr_j_m
 
 
-# ndoubl quantization step for the bucketed Pallas path (multiples of this
-# -> at most ~4-6 distinct Mosaic kernel compiles per profile)
+# ndoubl quantization step for the bucketed per-layer schedules (multiples
+# of this -> at most ~4-6 distinct layer-step programs per profile)
 _ND_QUANT = 4
 
 
@@ -388,14 +269,12 @@ def build_layer_schedules(tau, omega, min_qp_mu: float, solver: str):
         low layers) + schulz -> per-layer static `layer_schedules` of
         3-tuples (ndoubl, ns_doubling_schedule, ns_interaction_iters).
         nd is quantized UP to a multiple of _ND_QUANT so a 34-layer
-        profile holds at most ~4 distinct schedules -> at most ~4 Mosaic
-        compiles of the fused layer-step kernel. (Unquantized, a real
-        profile spans nd = 0..14 and the 14 sequential Mosaic compiles
-        took >500 s / crashed the TPU worker — BENCH_r02.) Rounding nd up
-        only SHRINKS the elemental step dtau = tau / 2^nd, so accuracy is
-        unaffected or better. The interaction iteration count ni keeps the
-        NS residual below f32 rounding per layer (thin upper layers need
-        0-1 instead of 4 — the work-reduction lever of PERF_NOTES.md).
+        profile holds at most ~4 distinct schedules -> at most ~4 compiled
+        instances of the layer step (unquantized, a real profile spans
+        nd = 0..14). Rounding nd up only SHRINKS the elemental step
+        dtau = tau / 2^nd, so accuracy is unaffected or better. The
+        interaction iteration count ni keeps the NS residual below f32
+        rounding per layer (thin upper layers need 0-1 instead of 4).
       - anything non-static (traced inputs) -> (None, None, None): the
         traced-ndoubl while_loop path.
 
@@ -443,8 +322,8 @@ def _build_layer_schedules(tau, omega, min_qp_mu: float, solver: str):
     ni_all = ns_interaction_iters(tau_scat, min_qp_mu)
     fixed_ni = os.environ.get("VSM_FIXED_NI")
     if fixed_ni:
-        # A/B lever for benchmarking the interaction NS adaptivity
-        # (docs/PERF_NOTES.md): force a uniform iteration count
+        # A/B lever for benchmarking the interaction NS adaptivity:
+        # force a uniform iteration count
         ni_all = np.full(len(tau_scat), int(fixed_ni), dtype=int)
     layer_schedules = tuple(
         (int(k), ns_doubling_schedule(dm * 2.0 ** int(k), min_qp_mu,
@@ -468,91 +347,71 @@ def _build_layer_schedules(tau, omega, min_qp_mu: float, solver: str):
         # still too many: give up interaction adaptivity entirely
         layer_schedules = tuple(e[:2] + (4,) for e in layer_schedules)
     if len(set(layer_schedules)) > 6:
-        # safety cap on Mosaic kernel instances: collapse to one global
-        # (max) schedule — a single compile
+        # safety cap on compiled layer-step instances: collapse to one
+        # global (max) schedule — a single compile
         k = int(nd_all.max())
         sched = ns_doubling_schedule(dm * 2.0 ** k, min_qp_mu, k)
         layer_schedules = tuple((k, sched, 4) for _ in nd_all)
     return None, None, layer_schedules
 
 
-# --- engine resilience: the Pallas fused-kernel engines must never hang or
-# kill the run (BENCH_r02: an unbounded Mosaic compile crashed the TPU
-# worker mid-flagship). Compilation runs in a watchdog thread with a
-# timeout; compile failure, timeout, or a runtime fault all fall back to
-# the always-safe XLA engine for the rest of the run. -----------------------
+#: Largest quadrature size N the fused layer-step kernel is chosen for: a
+#: 32 x 32 block. On an H100 it ran 3.1-3.5x faster end to end than the
+#: XLA engine at N = 15 (the flagship) and 1.36x at N = 32; a 64 x 64
+#: block did not compile within 150 s (PERF.md).
+KERNEL_MAX_N = 32
 
-_COMPILED_CACHE: dict = {}
-
-
-def _arg_sig(x):
-    if x is None:
-        return None
-    if isinstance(x, (bool, int, float)):
-        return ("py", type(x).__name__, float(x))
-    return (tuple(x.shape), str(x.dtype))
+#: The engine and solver of the most recent rt_run_band call, for callers
+#: that report what ran (the run banner logs the same).
+LAST_RUN: dict = {}
 
 
-def _watchdog_compile(args, statics, timeout_s):
-    """Lower + compile _fourier_step off-thread; None on timeout/failure.
-
-    Compile-only (never executes), so an abandoned hung compile can waste a
-    CPU thread but can never touch the TPU.
-    """
-    import concurrent.futures as cf
-    import warnings
-    ex = cf.ThreadPoolExecutor(max_workers=1)
-    fut = ex.submit(
-        lambda: _fourier_step.lower(*args, **statics).compile())
-    try:
-        return fut.result(timeout=timeout_s)
-    except cf.TimeoutError:
-        warnings.warn(
-            f"[vsmartmom] Pallas fused-kernel compile exceeded {timeout_s}s"
-            " — falling back to the XLA doubling engine")
-        return None
-    except Exception as e:                                # noqa: BLE001
-        warnings.warn(
-            f"[vsmartmom] Pallas fused-kernel compile failed ({e!r})"
-            " — falling back to the XLA doubling engine")
-        return None
-    finally:
-        ex.shutdown(wait=False)
+def default_solver(backend: str) -> str:
+    """Interaction/doubling solver for a backend: exact batched LU on the
+    CPU (LAPACK); on the GPU the scheduled Newton-Schulz products, which the
+    fused layer-step kernel needs (with it the flagship ran 2.5-3.0x faster
+    than XLA's batched LU; PERF.md)."""
+    return "lu" if backend == "cpu" else "schulz"
 
 
-def _call_fourier_step(args, statics, ctl):
-    """Run one Fourier step under the engine-control dict ``ctl``.
+def choose_engine(backend: str, dtype, n: int, scheduled: bool) -> str:
+    """Doubling engine for "auto": on the GPU in f32 with static NS
+    schedules (``scheduled``), the fused Triton layer-step kernel up to
+    N = KERNEL_MAX_N; the XLA engine otherwise (f64, CPU, traced
+    schedules, larger N — where it measured faster than the split-form
+    "xla_dev" engine on the H100)."""
+    if (backend == "gpu" and scheduled and jnp.dtype(dtype) == jnp.float32
+            and n <= KERNEL_MAX_N):
+        return "pallas_step"
+    return "xla"
 
-    ctl = {"engine": str, "watchdog_s": float}; mutates ctl["engine"] to
-    "xla" permanently after any Pallas compile/runtime failure.
-    """
-    import warnings
-    eng = ctl["engine"]
-    if eng.startswith("pallas") and not eng.endswith("interpret"):
-        st = dict(statics, doubling_engine=eng)
-        key = (tuple(sorted(st.items())), tuple(_arg_sig(a) for a in args))
-        compiled = _COMPILED_CACHE.get(key, "miss")
-        if compiled == "miss":
-            compiled = _watchdog_compile(args, st, ctl["watchdog_s"])
-            _COMPILED_CACHE[key] = compiled
-        if compiled is not None:
-            try:
-                return compiled(*args)
-            except Exception as e:                        # noqa: BLE001
-                warnings.warn(
-                    f"[vsmartmom] Pallas fused-kernel run failed ({e!r})"
-                    " — falling back to the XLA doubling engine")
-                _COMPILED_CACHE[key] = None
-        ctl["engine"] = "xla"
-        eng = "xla"
-    return _fourier_step(*args, **dict(statics, doubling_engine=eng))
+
+@functools.lru_cache(maxsize=32)
+def _shard_mapped_step(mesh, has_spectral_albedo, statics):
+    from jax.sharding import PartitionSpec as P
+
+    from vsmartmom.parallel.sharding import SPECTRAL_AXIS as S
+    spec = P(None, S)
+    in_specs = (spec, spec, P(None, None, S)) + (P(),) * 7 + (
+        P(S) if has_spectral_albedo else P(),) + (P(),) * 4
+    return jax.jit(jax.shard_map(
+        partial(_fourier_step, **dict(statics)), mesh=mesh,
+        in_specs=in_specs, out_specs=(P(S), P(S)), check_vma=False))
+
+
+def _sharded_fourier_step(mesh, has_spectral_albedo, *args, **statics):
+    """_fourier_step with every spectral operand split over ``mesh``; the
+    per-device n_spec static is the local slice length."""
+    return _shard_mapped_step(mesh, has_spectral_albedo,
+                              tuple(sorted(statics.items())))(*args)
 
 
 def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                 vza, vaz, max_m: int, surface, dtype=jnp.float64,
                 return_composite: bool = False, solver: Optional[str] = None,
                 return_hdr: bool = False, doubling_engine: str = "auto",
-                matmul_precision: str = "highest", sfi: bool = True):
+                matmul_precision: str = "highest", sfi: bool = True,
+                mesh=None):
     """Run the full Fourier-moment loop for one band; azimuthally synthesize.
 
     surface: dict like {"type": "LambertianSurfaceScalar", "albedo": 0.1}.
@@ -560,28 +419,25 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     ``return_hdr`` also (hdr, bhr_uw, bhr_dw): the hemispheric-directional
     surface-leaving radiance per VZA plus the bi-hemispheric up/downwelling
     fluxes at the surface (ref: rt_run.jl:187-226 RAMI outputs).
-    ``doubling_engine``: "auto" picks the fused Pallas layer-step kernel on
-    TPU (f32, forward-only, N <= 63), the XLA direct/diffuse split engine
-    ("xla_dev") on TPU beyond that, and the XLA batched-matmul path
-    elsewhere; force with "xla" / "xla_dev" / "pallas_step" / "pallas_dd"
-    / "pallas" / "*_interpret".
-    ``matmul_precision``: "highest" (true f32 MXU passes) or "high"
-    (3-pass bf16x3 — safe ONLY with the dev-form engines, where it is
-    gate-qualified end-to-end; with the plain engines it fails the gates:
-    data/qualification/precision_r0{3,4}.jsonl). The dev Pallas kernel's
-    matmul mode follows this argument ("highest" -> true f32 passes,
-    anything else -> bf16x3) unless env VSM_DD_PRECISION overrides.
+    ``doubling_engine``: "auto" (choose_engine); force with "xla" /
+    "xla_dev" / "pallas_step" / "pallas_step_interpret" (the kernel in
+    Pallas interpret mode, for tests).
+    ``matmul_precision``: precision of the XLA products ("highest" =
+    IEEE f32); the fused kernel's products are always IEEE f32.
     ``sfi``: True (default) synthesizes radiances from the single-beam
     source vectors J0-/J0+ (exact beam exponentials); False synthesizes
     from the R-+/T++ operator columns at the mu0 node (ref:
     postprocessing_vza.jl:30-56 SFI=false branch) — requires a quadrature
     that carries the beam as a REAL node (RadauQuad) to represent the
     direct beam in the discrete field.
+    ``mesh``: a 1-D spectral device mesh (parallel.sharding.spectral_mesh):
+    each device runs the Fourier step on its own contiguous slice of the
+    spectral axis under shard_map (the elastic path has no cross-spectral
+    coupling), nSpec padded to a multiple of the mesh size.
     """
+    backend = jax.default_backend()
     if solver is None:
-        # LU is fast on CPU (LAPACK); on TPU partial pivoting serializes, so
-        # use the all-matmul Newton-Schulz solve there.
-        solver = "lu" if jax.default_backend() == "cpu" else "schulz"
+        solver = default_solver(backend)
     n_spec = band.tau.shape[1]
     n = len(quad.qp_mu_n)
     n_stokes = pol.n
@@ -622,63 +478,41 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
         band.tau, band.omega, min_qp_mu, solver)
     doubling_engine = os.environ.get("VSM_DOUBLING_ENGINE", doubling_engine)
     if doubling_engine == "auto":
-        # The fused MXU kernel's lane packing (2n+2 rhs columns in one
-        # 128-lane pass) requires n <= 63; beyond that Mosaic compilation
-        # of the multi-tile packs degenerates (observed: N=148 never
-        # finishes). The experimental lanes-layout VPU kernel
-        # (pallas/lanes_kernel.py) measured 600x SLOWER on current Mosaic
-        # (leading-dim broadcasts scalarize) — never auto-selected.
-        usable = (ns_schedule is not None or layer_schedules is not None)
-        if (jax.default_backend() != "cpu" and usable
-                and dtype == jnp.float32):
-            # n > 63: beyond the fused kernel's lane-packing sweet spot ->
-            # the XLA direct/diffuse split engine. Its improved f32 floor
-            # is what makes TPU f32 pass ALL reference accuracy gates
-            # (incl. Natraj I at N=148 grazing mu, which the plain f32
-            # path fails at 0.00204 vs 0.002 —
-            # data/qualification/precision_r04.jsonl).
-            doubling_engine = "pallas_step" if n <= 63 else "xla_dev"
-        else:
-            doubling_engine = "xla"
-    if (doubling_engine in ("pallas_dd", "pallas_dd_interpret", "xla_dev")
+        doubling_engine = choose_engine(
+            backend, dtype, n,
+            ns_schedule is not None or layer_schedules is not None)
+    if (doubling_engine == "xla_dev"
             and layer_schedules is None and ndoubl_static is None):
-        # dev-form engines always need static per-layer schedules; under
-        # the LU solver the builder's NS data is simply ignored (the dev
+        # the split engine always needs static per-layer schedules; under
+        # the LU solver the builder's NS data is simply ignored (the split
         # branch solves exactly), so borrow the schulz builder's buckets.
         _, _, layer_schedules = build_layer_schedules(
             band.tau, band.omega, min_qp_mu, "schulz")
-    engine_ctl = {
-        "engine": doubling_engine,
-        "watchdog_s": float(os.environ.get("VSM_PALLAS_COMPILE_TIMEOUT_S",
-                                           "600")),
-    }
+    LAST_RUN.clear()
+    LAST_RUN.update(engine=doubling_engine, solver=solver)
 
     # run banner (ref: rt_run.jl:99-106 @info)
     from vsmartmom.util.logging import run_banner
     run_banner(pol, quad, n_spec, band.tau.shape[0], max_m, surface,
                doubling_engine, solver, dtype)
 
-    # Spectral padding ONCE at the driver instead of inside every fused
-    # kernel call: a non-multiple-of-block nSpec made fused_layer_step pad
-    # (copy) all 12 composite+elemental arrays per LAYER per moment
-    # (~25 GB of copies on the flagship). Padded points edge-replicate the
-    # last spectral column (finite physics, discarded at the fetch).
-    pad_spec = 0
-    if doubling_engine.startswith(("pallas_step", "pallas_dd",
-                                   "pallas_lanes", "pallas_scan")):
-        pad_spec = (-n_spec) % 16          # fused kernels' block_s
     tau_in, omega_in, zw_in = band.tau, band.omega, band.zw
     spectral_albedo_in = spectral_albedo
-    if pad_spec:
-        rep = lambda a: np.concatenate(
-            [a, np.repeat(np.asarray(a)[..., -1:], pad_spec, axis=-1)],
-            axis=-1)
-        tau_in, omega_in, zw_in = rep(tau_in), rep(omega_in), rep(zw_in)
-        if spectral_albedo is not None:
-            spectral_albedo_in = jnp.concatenate(
-                [spectral_albedo,
-                 jnp.repeat(spectral_albedo[-1:], pad_spec)])
-    n_spec_run = n_spec + pad_spec
+    step, n_step = _fourier_step, n_spec
+    if mesh is not None:
+        n_dev = mesh.devices.size
+        pad = (-n_spec) % n_dev
+        if pad:
+            # edge-replicated points: finite physics, discarded below
+            rep = lambda a: np.concatenate(
+                [a, np.repeat(np.asarray(a)[..., -1:], pad, axis=-1)],
+                axis=-1)
+            tau_in, omega_in, zw_in = rep(tau_in), rep(omega_in), rep(zw_in)
+            if spectral_albedo is not None:
+                spectral_albedo_in = jnp.asarray(rep(spectral_albedo))
+        n_step = (n_spec + pad) // n_dev
+        step = partial(_sharded_fourier_step, mesh,
+                       spectral_albedo is not None)
 
     to_dev = lambda x: jnp.asarray(x, dtype)
     comps = []
@@ -700,33 +534,20 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                     if is_brdf else None)
 
         with timeit("fourier step (layer scan + surface)"):
-            step_args = (
+            comp, hdr_j_m_dev = step(
                 to_dev(tau_in), to_dev(omega_in), to_dev(zw_in),
                 z_pp_c, z_mp_c, to_dev(quad.qp_mu_n), to_dev(quad.wt_mu_n),
                 to_dev(d_vec), to_dev(i0_vec), jnp.asarray(albedo, dtype),
                 spectral_albedo_in, jnp.asarray(quad.mu0, dtype),
                 jnp.asarray(mu0_node, dtype), jnp.asarray(min_qp_mu, dtype),
-                rho_brdf)
-            # The dd kernel's matmul mode follows matmul_precision unless
-            # env VSM_DD_PRECISION overrides; the static is only threaded
-            # through for the dd engine so env changes don't recompile
-            # every other engine.
-            if doubling_engine.startswith("pallas_dd"):
-                dd_precision = os.environ.get(
-                    "VSM_DD_PRECISION",
-                    "highest" if matmul_precision == "highest" else "bf16x3")
-            else:
-                dd_precision = None
-            step_statics = dict(
+                rho_brdf,
                 i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes, is_m0=(m == 0),
-                n_spec=n_spec_run, solver=solver,
+                n_spec=n_step, solver=solver,
                 ndoubl_static=ndoubl_static, ns_schedule=ns_schedule,
+                doubling_engine=doubling_engine,
                 matmul_precision=matmul_precision,
-                layer_schedules=layer_schedules,
-                dd_precision=dd_precision)
-            comp, hdr_j_m_dev = _call_fourier_step(step_args, step_statics,
-                                                   engine_ctl)
-        if pad_spec:
+                layer_schedules=layer_schedules)
+        if comp.j_m.shape[0] != n_spec:
             comp = jax.tree.map(lambda x: x[:n_spec], comp)
             hdr_j_m_dev = hdr_j_m_dev[:n_spec]
         if return_composite:

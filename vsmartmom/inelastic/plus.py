@@ -12,7 +12,7 @@ getRamanSSProp!(VS_0to1_plus):119-252):
   rovibrational Raman into far-shifted scattered windows (bands 2..), i.e.
   absolute-index coupling from one source column into per-output weights.
 
-TPU-native representation: both reduce to per-output (source-index, weight)
+Representation: both reduce to per-output (source-index, weight)
 rows consumed by core.rt_raman.build_coupling — banded rows for RRS_plus
 (``RRS.band_range``), single gather-from-i_ref rows for VS_plus
 (``AbsoluteRaman``), so the RT core is identical for all modes.

@@ -191,7 +191,7 @@ def apply_lineshape(shifts, coeffs, nu0: float, grid_out,
 
     ref: src/Inelastic/src/apply_lineshape.jl apply_lineshape_! — the
     reference loops transitions and mutates a view per line; here one
-    (nLines, nGrid) masked broadcast does all lines at once (TPU/vmap
+    (nLines, nGrid) masked broadcast does all lines at once (vmap
     friendly, and what XLA fuses into a single kernel).
     """
     shifts = np.asarray(shifts, np.float64)

@@ -1,5 +1,1 @@
-"""Pallas TPU kernels (hot-path custom ops)."""
-from vsmartmom.pallas.voigt_kernel import (VoigtPlan, rew_hw32sd,
-                                           voigt_xsec_pallas)
-
-__all__ = ["VoigtPlan", "rew_hw32sd", "voigt_xsec_pallas"]
+"""Pallas kernels on the Triton route (hot-path custom ops)."""

@@ -1,43 +1,36 @@
-"""Fused Pallas TPU kernel for one full RT layer step (doubling + adding).
+"""Fused Pallas (Triton route) kernel for one full RT layer step.
 
-Extends pallas/doubling_kernel.py to the whole per-layer update of the
-layer scan: grow the elemental layer by doubling AND compose it with the
-carried composite (ref: src/CoreRT/CoreKernel/{doubling,interaction}.jl,
-driven from rt_kernel.jl:173-235) — all in one VMEM-resident kernel.
+One program owns one spectral point. It grows the elemental layer by
+doubling and composes it with the carried composite (ref:
+src/CoreRT/CoreKernel/{doubling,interaction}.jl, driven from
+rt_kernel.jl:173-235), keeping the point's ~10 N x N operators in registers
+and shared memory across every doubling step and the interaction. The XLA
+engine runs each of the 6 + 2*ns batched N x N products per doubling step
+as its own kernel with a device-memory round trip; at N = 15 in f32 that is
+about 2.5 flop/byte, far below the card's ridge point.
 
-Why: with separate kernels the doubled added layer (2 N^2 matrices + 2
-vectors per spectral point) round-trips HBM between doubling and
-interaction, and the XLA interaction path issues ~15 HBM-bound batched
-matmuls per layer. Keeping the added layer in VMEM and lane-packing the
-interaction (same scheme as the doubling kernel: every right-hand operand
-sharing a left matrix rides one MXU pass) cuts per-layer HBM traffic to
-one read of the composite + elemental and one write of the composite.
-
-MXU point packing: the RT matrices are N x N with N = 15..63 while the
-MXU processes 128x128 tiles — a per-point batched matmul wastes
-(1 - N/128)^2 of the array AND amortizes the stationary-operand load over
-only N rows. ``pack_points`` = p packs p spectral points into one
-BLOCK-DIAGONAL (pN x pN) matrix: products/sums/Newton-Schulz solves of
-block-diagonal matrices are the block-wise ones (the packed identity IS
-the pN identity), so every dot product equals its unpacked counterpart
-EXACTLY (the extra terms are additions of 0.0). Packing runs in XLA
-outside the kernel (Mosaic has no lowering for the scatter/concat
-patterns needed in-kernel); the extra HBM traffic is far below the
-bandwidth headroom of this compute-bound kernel.
+Triton dots are 2-D with power-of-two sides of at least 16, so the wrapper
+zero-pads N to 16, 32 or 64. Zero padding is inert: every solve sees an
+identity block there and every product leaves zeros. Products are IEEE f32
+(DotAlgorithmPreset.F32_F32_F32, FMA units): three-pass TF32 measured
+slower at N = 15 and took ~20x longer to compile. The doubling schedule
+runs as one loop per run of equal Newton-Schulz counts, not unrolled, so
+the program holds a few loop bodies (3.5 s to compile at N = 15 against
+9.0 s unrolled, PERF.md). rt_run chooses the kernel only up to
+rt_run.KERNEL_MAX_N.
 
 The added layer produced by doubling is D-symmetric (r_pm = sgn * r_mp,
-t_mm = sgn * t_pp with sgn = d d^T), so only r_mp/t_pp are ever formed;
-the composite is not D-symmetric (layers differ) and carries all six
-fields. Algebra matches core.rt.interaction / core.rt.doubling exactly
-(same dot products; solver association t @ (M @ X)).
+t_mm = sgn * t_pp with sgn = d d^T), so only r_mp/t_pp are formed; the
+composite is not D-symmetric (layers differ) and carries all six fields.
+The algebra matches core.rt.doubling + core.rt.interaction (same dot
+products), with one Newton-Schulz solve per interaction: the second
+interaction inverse follows from the first by the push-through identity
+(I - c_rpm r2mp)^-1 = I + c_rpm (I - r2mp c_rpm)^-1 r2mp.
 
-Differentiable via jax.custom_jvp: the primal runs the Pallas kernel; the
-tangent rule is the jvp of the pure-jnp twin (_xla_twin_step — the same
-doubling+interaction algebra as core.rt), mirroring how the reference
-differentiates its production GPU path with Dual-number CUBLAS overloads
-(ref: CoreRT/tools/gpu_batched.jl:100-151). jacfwd/jvp through rt code
-using these kernels therefore costs one extra XLA forward + tangent pass
-per layer, with the primal radiances still produced by the kernel.
+Differentiable via jax.custom_jvp: the primal runs the kernel; the tangent
+rule is the jvp of the pure-jnp twin (_xla_twin_step), mirroring how the
+reference differentiates its production GPU path with Dual-number CUBLAS
+overloads (ref: CoreRT/tools/gpu_batched.jl:100-151).
 """
 from __future__ import annotations
 
@@ -45,173 +38,128 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from vsmartmom.pallas.doubling_kernel import batch_mm, doubling_body
+PRECISION = lax.DotAlgorithmPreset.F32_F32_F32
+
+#: Triton warps per program, by padded block side (PERF.md)
+NUM_WARPS = {16: 2, 32: 4, 64: 4}
 
 
-def ns_m(mm, a, iters):
-    """Newton-Schulz approximate inverse M of A = I - B, rho(B) < 1.
-    Matches core.rt.make_rsolve('schulz', iters) operation-for-operation."""
-    n = a.shape[-1]
-    eye2 = 2.0 * jnp.eye(n, dtype=a.dtype)[None]
-    m = eye2 - a
-    for _ in range(iters):
-        m = mm(m, eye2 - mm(a, m))
-    return m
+def padded_n(n: int) -> int:
+    """Kernel block side: the next power of two >= max(n, 16)."""
+    return max(16, 1 << (int(n) - 1).bit_length())
+
+
+def ns_runs(ns_schedule) -> tuple:
+    """Consecutive equal entries of an NS schedule as (iterations, steps)."""
+    runs = []
+    for it in ns_schedule:
+        if runs and runs[-1][0] == it:
+            runs[-1][1] += 1
+        else:
+            runs.append([it, 1])
+    return tuple((int(it), k) for it, k in runs)
+
+
+def _eye(n, dtype):
+    i = lax.broadcasted_iota(jnp.int32, (n, n), 0)
+    j = lax.broadcasted_iota(jnp.int32, (n, n), 1)
+    return (i == j).astype(dtype)
 
 
 def _layer_step_kernel(cr_mp_ref, cr_pm_ref, ct_pp_ref, ct_mm_ref,
                        cjp_ref, cjm_ref,
                        r_ref, t_ref, jp_ref, jm_ref, ek_ref, d_ref,
                        or_mp, or_pm, ot_pp, ot_mm, ojp, ojm,
-                       *, ns_schedule, ni, precision, pushthrough):
-    mm = batch_mm(precision)
+                       *, ns_schedule, ni):
+    def mm(a, b):
+        return jnp.dot(a, b, precision=PRECISION,
+                       preferred_element_type=jnp.float32)
+
+    def mv(a, v):
+        return jnp.sum(a * v[None, :], axis=1)
+
+    r = r_ref[...]
+    t = t_ref[...]
+    jp = jp_ref[...]
+    jm = jm_ref[...]
+    ek = ek_ref[...]                      # (1,), broadcasts on vectors
+    n = r.shape[-1]
+    eye = _eye(n, r.dtype)
+
+    def ns_m(a, iters):
+        """Newton-Schulz inverse of A = I - B: M0 = 2I - A = I + B."""
+        m = 2.0 * eye - a
+        if iters == 0:
+            return m
+        return lax.fori_loop(0, iters,
+                             lambda _, m: mm(m, 2.0 * eye - mm(a, m)), m)
+
+    def double(it, _, carry):
+        r, t, jp, jm, ek = carry
+        m = ns_m(eye - mm(r, r), it)
+        j1p = jp * ek
+        j1m = jm * ek
+        rt = mm(r, t)
+        v1 = j1m + mv(r, jp)
+        v2 = jp + mv(r, j1m)
+        jm = jm + mv(t, mv(m, v1))
+        jp = j1p + mv(t, mv(m, v2))
+        r = r + mm(t, mm(m, rt))
+        t = mm(t, mm(m, t))
+        return r, t, jp, jm, ek * ek
 
     # --- 1. doubling of the elemental layer (flipped space) ---
-    # ek_ref is (S, 1) unpacked or (S/p, pN) point-packed; both broadcast
-    # elementwise against the source vectors.
-    r_f, t2, jp2, jm_f = doubling_body(
-        mm, r_ref[:], t_ref[:], jp_ref[:], jm_ref[:], ek_ref[:], ns_schedule)
+    # one loop per run of equal NS counts: the program holds a few loop
+    # bodies instead of the whole unrolled schedule (compile time)
+    carry = (r, t, jp, jm, ek)
+    for it, count in ns_runs(ns_schedule):
+        carry = lax.fori_loop(0, count, functools.partial(double, it), carry)
+    r, t, jp, jm, ek = carry
 
-    d = d_ref[:]                          # (1, N)
-    r2mp = d[:, :, None] * r_f            # un-flip rows
-    j2m = d * jm_f
-    sgn = d[:, :, None] * d[:, None, :]   # (1, N, N)
-    r2pm = sgn * r2mp
-    t2mm = sgn * t2
+    d = d_ref[...]
+    r2mp = d[:, None] * r                 # un-flip rows
+    j2m = d * jm
+    sgn = d[:, None] * d[None, :]
+    t2mm = sgn * t
 
-    c_rmp = cr_mp_ref[:]
-    c_rpm = cr_pm_ref[:]
-    c_tpp = ct_pp_ref[:]
-    c_tmm = ct_mm_ref[:]
-    c_jp = cjp_ref[:]
-    c_jm = cjm_ref[:]
+    c_rpm = cr_pm_ref[...]
+    c_tpp = ct_pp_ref[...]
+    c_tmm = ct_mm_ref[...]
+    c_jp = cjp_ref[...]
 
-    n = r2mp.shape[-1]
-    eye = jnp.eye(n, dtype=r2mp.dtype)[None]
+    # --- 2. interaction (ref interaction.jl:69-117), push-through form ---
+    m1 = ns_m(eye - mm(r2mp, c_rpm), ni)
+    w1 = mm(r2mp, c_tpp)
+    v1 = mv(r2mp, c_jp) + j2m
+    w2 = mm(c_rpm, t2mm)
+    v2 = c_jp + mv(c_rpm, j2m)
+    y_a = mm(m1, w1)                      # M1 r2mp c_tpp
+    y_t = mm(m1, t2mm)
+    y_v = mv(m1, v1)
+    y_b = mm(m1, mm(r2mp, w2))
+    y_bv = mv(m1, mv(r2mp, v2))
 
-    # --- 2. interaction (lane-packed; ref interaction.jl:69-117) ---
-    a1 = eye - mm(r2mp, c_rpm)
-    w1 = mm(r2mp, jnp.concatenate([c_tpp, c_jp[..., None]], axis=-1))
-    v1 = w1[..., n] + j2m
-    x1 = jnp.concatenate([w1[..., :n], t2mm, v1[..., None]], axis=-1)
-    w2 = mm(c_rpm, jnp.concatenate([t2mm, j2m[..., None]], axis=-1))
-    v2 = c_jp + w2[..., n]
-    x2 = jnp.concatenate([c_tpp, w2[..., :n], v2[..., None]], axis=-1)
-
-    if pushthrough:
-        # ONE Newton-Schulz solve per layer: the second interaction solve
-        # follows from the first by the push-through identity
-        #   (I - c_rpm r2mp)^-1 = I + c_rpm (I - r2mp c_rpm)^-1 r2mp,
-        # exact for the true inverse; with the NS approximation M1 the
-        # substitute's residual is c_rpm (M1 - A1^-1) r2mp, no larger than
-        # the direct NS residual (||c_rpm||, ||r2mp|| <= 1 for passive
-        # media). Saves the a2 build + 2*ni solve passes (24 -> 7 + 2*ni
-        # MXU passes of interaction per layer).
-        y = mm(ns_m(mm, a1, ni),
-               jnp.concatenate([x1, mm(r2mp, x2)], axis=-1))
-        o1 = mm(c_tmm, y[..., :2 * n + 1])
-        o2 = mm(t2, x2 + mm(c_rpm, y[..., 2 * n + 1:]))
-    else:
-        o1 = mm(c_tmm, mm(ns_m(mm, a1, ni), x1))
-        a2 = eye - mm(c_rpm, r2mp)
-        o2 = mm(t2, mm(ns_m(mm, a2, ni), x2))
-
-    or_mp[:] = c_rmp + o1[..., :n]
-    ot_mm[:] = o1[..., n:2 * n]
-    ojm[:] = c_jm + o1[..., 2 * n]
-    ot_pp[:] = o2[..., :n]
-    or_pm[:] = r2pm + o2[..., n:2 * n]
-    ojp[:] = jp2 + o2[..., 2 * n]
-
-
-def _layer_step_kernel_dev(c_rmp_ref, c_rpm_ref, c_epp_ref, c_emm_ref,
-                           c_g_ref, cjp_ref, cjm_ref,
-                           r_ref, e_ref, g_ref, jp_ref, jm_ref, ek_ref,
-                           d_ref,
-                           o_rmp, o_rpm, o_epp, o_emm, o_g, ojp, ojm,
-                           *, ns_schedule, ni, precision):
-    """Direct/diffuse split ("deviation form") layer step — the bf16x3-safe
-    twin of _layer_step_kernel. The algebra lives ONCE in
-    core.rt.{doubling_dev, interaction_dev} (pure jnp + injected matmul),
-    shared verbatim between this kernel and the XLA dev engine; only the
-    batched-matmul implementation differs (batch_mm precision modes)."""
-    from vsmartmom.core.rt import LayerRTDev, doubling_dev, interaction_dev
-    mm = batch_mm(precision)
-
-    r_f, g2, e2, jp2, jm_f = doubling_dev(
-        r_ref[:], g_ref[:], e_ref[:], jp_ref[:], jm_ref[:], ek_ref[:],
-        ns_schedule=ns_schedule, mm=mm)
-
-    d = d_ref[:]                          # (1, N)
-    r2mp = d[:, :, None] * r_f
-    j2m = d * jm_f
-    sgn = d[:, :, None] * d[:, None, :]
-    added = LayerRTDev(r_mp=r2mp, r_pm=sgn * r2mp, e_pp=e2,
-                       e_mm=sgn * e2, g=g2, j_p=jp2, j_m=j2m)
-    comp = LayerRTDev(r_mp=c_rmp_ref[:], r_pm=c_rpm_ref[:],
-                      e_pp=c_epp_ref[:], e_mm=c_emm_ref[:], g=c_g_ref[:],
-                      j_p=cjp_ref[:], j_m=cjm_ref[:])
-    new = interaction_dev(comp, added, ni=ni, mm=mm)
-    o_rmp[:] = new.r_mp
-    o_rpm[:] = new.r_pm
-    o_epp[:] = new.e_pp
-    o_emm[:] = new.e_mm
-    o_g[:] = new.g
-    ojp[:] = new.j_p
-    ojm[:] = new.j_m
-
-
-# --- XLA-side block-diagonal point packing ----------------------------------
-
-def blockdiag_pack(x, p):
-    """(s, n, n) -> block-diagonal (s/p, pn, pn) (XLA ops, outside Mosaic)."""
-    if p == 1:
-        return x
-    s, n, _ = x.shape
-    xr = x.reshape(s // p, p, n, n)
-    out = jnp.zeros((s // p, p * n, p * n), x.dtype)
-    for j in range(p):
-        out = jax.lax.dynamic_update_slice(out, xr[:, j], (0, j * n, j * n))
-    return out
-
-
-def blockdiag_unpack(x, p, n):
-    """Inverse of blockdiag_pack: extract the p diagonal blocks."""
-    if p == 1:
-        return x
-    blocks = [x[:, j * n:(j + 1) * n, j * n:(j + 1) * n] for j in range(p)]
-    return jnp.stack(blocks, axis=1).reshape(-1, n, n)
-
-
-def _auto_pack(n: int, block_s: int) -> int:
-    """Largest point-packing factor: p*N capped via VSM_PACK_LIMIT.
-    Default 0 (packing off): measured end-to-end on TPU v5e, the XLA-side
-    block-diagonal pack/unpack (sublane-misaligned scatters) costs more
-    than the kernel gains at N = 12-15 — opt in per-call or via env once
-    the scan-level packed-state design lands."""
-    import os
-    limit = int(os.environ.get("VSM_PACK_LIMIT", "0"))
-    for p in (8, 4, 2):
-        if p * n <= limit and block_s % p == 0:
-            return p
-    return 1
+    or_mp[...] = cr_mp_ref[...] + mm(c_tmm, y_a)
+    ot_mm[...] = mm(c_tmm, y_t)
+    ojm[...] = cjm_ref[...] + mv(c_tmm, y_v)
+    ot_pp[...] = mm(t, c_tpp + mm(c_rpm, y_a))
+    or_pm[...] = sgn * r2mp + mm(t, w2 + mm(c_rpm, y_b))
+    ojp[...] = jp + mv(t, v2 + mv(c_rpm, y_bv))
 
 
 def _xla_twin_step(comp, r_f, t, jp, jm_f, ek, d_vec, *, ns_schedule, ni):
     """Pure-jnp twin of fused_layer_step (identical algebra; serves as the
-    differentiation rule for the forward-only Pallas kernel)."""
+    differentiation rule for the forward-only kernel)."""
     from vsmartmom.core.rt import (LayerRT, doubling, interaction,
                                    make_rsolve)
     n_spec, n, _ = r_f.shape
     eye = jnp.broadcast_to(jnp.eye(n, dtype=r_f.dtype), (n_spec, n, n))
-    rs = make_rsolve("schulz", 4)
     r_f2, t2, jp2, jm_f2 = doubling(r_f, t, jp, jm_f, ek,
-                                    len(ns_schedule), eye, rsolve=rs,
+                                    len(ns_schedule), eye,
                                     ns_schedule=tuple(ns_schedule))
     dvr = jnp.asarray(d_vec, r_f.dtype)
     r_mp = dvr[None, :, None] * r_f2
@@ -222,248 +170,110 @@ def _xla_twin_step(comp, r_f, t, jp, jm_f, ek, d_vec, *, ns_schedule, ni):
                        rsolve=make_rsolve("schulz", int(ni)))
 
 
-def _xla_twin_step_dev(comp, r_f, g_el, e_el, jp, jm_f, ek, d_vec, *,
-                       ns_schedule, ni):
-    """Pure-jnp twin of fused_layer_step_dev (split-form algebra)."""
-    from vsmartmom.core.rt import LayerRTDev, doubling_dev, interaction_dev
-    r_f2, g2, e2, jp2, jm_f2 = doubling_dev(
-        r_f, g_el, e_el, jp, jm_f, ek, ns_schedule=tuple(ns_schedule),
-        ndoubl=len(ns_schedule))
-    dvr = jnp.asarray(d_vec, r_f.dtype)
-    r_mp = dvr[None, :, None] * r_f2
-    sgn = dvr[None, :, None] * dvr[None, None, :]
-    added = LayerRTDev(r_mp=r_mp, r_pm=sgn * r_mp, e_pp=e2,
-                       e_mm=sgn * e2, g=g2, j_p=jp2,
-                       j_m=dvr[None, :] * jm_f2)
-    return interaction_dev(comp, added, ni=int(ni))
-
-
 @functools.lru_cache(maxsize=64)
-def _fls_differentiable(statics: tuple, dev: bool):
-    """custom_jvp wrapper per static configuration: Pallas primal, twin
+def _fls_differentiable(statics: tuple):
+    """custom_jvp wrapper per static configuration: kernel primal, twin
     tangent. Cached so each (schedule, ...) config traces once."""
     statics_d = dict(statics)
-    prim = _fused_layer_step_dev_prim if dev else _fused_layer_step_prim
-    twin = _xla_twin_step_dev if dev else _xla_twin_step
-    twin_kw = dict(ns_schedule=statics_d["ns_schedule"],
-                   ni=statics_d["ni"])
+    twin_kw = dict(ns_schedule=statics_d["ns_schedule"], ni=statics_d["ni"])
+    precision = statics_d.pop("tangent_precision")
 
     @jax.custom_jvp
     def f(*primals):
-        return prim(*primals, **statics_d)
+        return _fused_layer_step_prim(*primals, **statics_d)
 
     @f.defjvp
     def f_jvp(primals, tangents):
         out = f(*primals)
-        _, dout = jax.jvp(lambda *p: twin(*p, **twin_kw), primals,
-                          tangents)
+        # the rule is traced lazily, outside the caller's precision
+        # context: restore it, or the twin's products drop to TF32 on GPU
+        with jax.default_matmul_precision(precision):
+            _, dout = jax.jvp(lambda *p: _xla_twin_step(*p, **twin_kw),
+                              primals, tangents)
         return out, dout
 
     return f
 
 
 def fused_layer_step(comp, r_f, t, jp, jm_f, ek, d_vec, *,
-                     ns_schedule: tuple, ni: int = 4, block_s: int = 16,
-                     interpret: bool = False,
-                     precision_name: str = "highest",
-                     pack_points=None, pushthrough: bool = True):
-    """Differentiable wrapper around the fused Pallas layer step (see
-    _fused_layer_step_prim for the kernel and _xla_twin_step for the
-    tangent rule)."""
-    statics = (("ns_schedule", tuple(ns_schedule)), ("ni", int(ni)),
-               ("block_s", int(block_s)), ("interpret", bool(interpret)),
-               ("precision_name", precision_name),
-               ("pack_points", pack_points),
-               ("pushthrough", bool(pushthrough)))
-    f = _fls_differentiable(statics, dev=False)
-    return f(comp, r_f, t, jp, jm_f, ek, jnp.asarray(d_vec, r_f.dtype))
-
-
-@functools.partial(jax.jit, static_argnames=("ns_schedule", "ni", "block_s",
-                                             "interpret", "precision_name",
-                                             "pack_points", "pushthrough"))
-def _fused_layer_step_prim(comp, r_f, t, jp, jm_f, ek, d_vec, *,
-                           ns_schedule: tuple, ni: int = 4, block_s: int = 16,
-                           interpret: bool = False,
-                     precision_name: str = "highest",
-                     pack_points: int | None = None,
-                     pushthrough: bool = True):
+                     ns_schedule: tuple, ni: int = 4,
+                     interpret: bool = False):
     """One RT layer step: double the elemental (flipped-space) layer and
-    compose it under the composite. comp is a LayerRT pytree; r_f/t:
+    compose it under the composite. comp is a LayerRT pytree whose
+    operators are (nSpec, M, M) with M = N or M = padded_n(N); r_f/t:
     (nSpec, N, N); jp/jm_f: (nSpec, N); ek: (nSpec,); d_vec: (N,).
-    ``pack_points``: block-diagonal MXU packing factor (None = auto).
-    Returns the new composite LayerRT."""
+    Returns the new composite at the composite's own size M (a caller that
+    carries the composite padded across a layer scan pads only once). The
+    tangent rule's products run at the matmul precision in force here
+    ("highest" if none is set).
+    """
+    statics = (("ns_schedule", tuple(ns_schedule)), ("ni", int(ni)),
+               ("interpret", bool(interpret)),
+               ("tangent_precision",
+                jax.config.jax_default_matmul_precision or "highest"))
+    f = _fls_differentiable(statics)
+    # the elemental layer at the composite's size, so that the kernel and
+    # its twin (the tangent rule) see one consistent N
+    p = comp.r_mp.shape[-1] - r_f.shape[-1]
+    mats = [jnp.pad(m, [(0, 0), (0, p), (0, p)]) for m in (r_f, t)]
+    vecs = [jnp.pad(v, [(0, 0), (0, p)]) for v in (jp, jm_f)]
+    d = jnp.pad(jnp.asarray(d_vec, r_f.dtype), [(0, p)])
+    return f(comp, *mats, *vecs, ek, d)
+
+
+def pad_layer(layer, n_pad: int):
+    """Zero-pad a LayerRT's operators and sources from N to n_pad."""
+    n = layer.r_mp.shape[-1]
+    if n == n_pad:
+        return layer
+    p = n_pad - n
+    return type(layer)(
+        *(jnp.pad(x, [(0, 0), (0, p), (0, p)]) for x in layer[:4]),
+        *(jnp.pad(v, [(0, 0), (0, p)]) for v in layer[4:]))
+
+
+def unpad_layer(layer, n: int):
+    """Inverse of pad_layer."""
+    return type(layer)(*(x[:, :n, :n] for x in layer[:4]),
+                       *(v[:, :n] for v in layer[4:]))
+
+
+@functools.partial(jax.jit, static_argnames=("ns_schedule", "ni",
+                                             "interpret"))
+def _fused_layer_step_prim(comp, r_f, t, jp, jm_f, ek, d_vec, *,
+                           ns_schedule: tuple, ni: int = 4,
+                           interpret: bool = False):
     from vsmartmom.core.rt import LayerRT
 
     n_spec, n, _ = r_f.shape
-    pack = _auto_pack(n, block_s) if pack_points is None else pack_points
-    # packed vector blocks are (block_s/pack, pack*n): Mosaic needs the
-    # sublane dim divisible by 8
-    block_s = max(block_s, 8 * pack)
-    pad = (-n_spec) % block_s
-    mats = [comp.r_mp, comp.r_pm, comp.t_pp, comp.t_mm]
-    vecs = [comp.j_p, comp.j_m]
-    amats = [r_f, t]
-    avecs = [jp, jm_f]
-    if pad:
-        # padded points: comp.t = I, everything else 0 -> inert solves
-        zm = [(0, pad), (0, 0), (0, 0)]
-        zv = [(0, pad), (0, 0)]
-        eye_pad = np.zeros((pad, n, n), r_f.dtype)
-        eye_pad[:] = np.eye(n, dtype=r_f.dtype)
-        mats = [jnp.pad(comp.r_mp, zm), jnp.pad(comp.r_pm, zm),
-                jnp.concatenate([comp.t_pp, eye_pad]),
-                jnp.concatenate([comp.t_mm, eye_pad])]
-        vecs = [jnp.pad(v, zv) for v in vecs]
-        amats = [jnp.pad(m, zm) for m in amats]
-        avecs = [jnp.pad(v, zv) for v in avecs]
-        ek = jnp.pad(ek, [(0, pad)])
-    n_pad = n_spec + pad
-    precision = {"highest": lax.Precision.HIGHEST,
-                 "high": "bf16x3",       # Mosaic can't lower HIGH; see batch_mm
-                 "default": lax.Precision.DEFAULT}[precision_name]
+    n_pad = padded_n(n)
+    n_comp = comp.r_mp.shape[-1]
+    comp = pad_layer(comp, n_pad)
+    mats = [jnp.pad(m, [(0, 0), (0, n_pad - n), (0, n_pad - n)])
+            for m in (r_f, t)]
+    vecs = [jnp.pad(v, [(0, 0), (0, n_pad - n)]) for v in (jp, jm_f)]
+    d = jnp.pad(d_vec, [(0, n_pad - n)])
 
-    # point packing: p points -> one block-diagonal pN x pN "point"
-    n_eff = pack * n
-    s_eff = n_pad // pack
-    bs_eff = block_s // pack
-    if pack > 1:
-        mats = [blockdiag_pack(m, pack) for m in mats]
-        amats = [blockdiag_pack(m, pack) for m in amats]
-        vecs = [v.reshape(s_eff, n_eff) for v in vecs]
-        avecs = [v.reshape(s_eff, n_eff) for v in avecs]
-        # each point's exp(-dtau/mu0) repeated across its lane segment
-        ek2 = jnp.repeat(ek.reshape(s_eff, pack), n, axis=1)
-        d2 = jnp.tile(jnp.asarray(d_vec, r_f.dtype).reshape(1, n), (1, pack))
-        ek_block = (bs_eff, n_eff)
-    else:
-        ek2 = ek.reshape(n_pad, 1)
-        d2 = jnp.asarray(d_vec, r_f.dtype).reshape(1, n)
-        ek_block = (block_s, 1)
-
-    grid = (s_eff // bs_eff,)
-    mat_spec = pl.BlockSpec((bs_eff, n_eff, n_eff), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-    vec_spec = pl.BlockSpec((bs_eff, n_eff), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    ek_spec = pl.BlockSpec(ek_block, lambda i: (i, 0),
-                           memory_space=pltpu.VMEM)
-    d_spec = pl.BlockSpec((1, n_eff), lambda i: (0, 0),
-                          memory_space=pltpu.VMEM)
-
+    mat_spec = pl.BlockSpec((None, n_pad, n_pad), lambda i: (i, 0, 0))
+    vec_spec = pl.BlockSpec((None, n_pad), lambda i: (i, 0))
+    ek_spec = pl.BlockSpec((None, 1), lambda i: (i, 0))
+    d_spec = pl.BlockSpec((n_pad,), lambda i: (0,))
     kern = functools.partial(_layer_step_kernel,
-                             ns_schedule=tuple(ns_schedule), ni=ni,
-                             precision=precision, pushthrough=pushthrough)
-    kwargs = {}
-    if not interpret:
-        kwargs["compiler_params"] = pltpu.CompilerParams(
-            vmem_limit_bytes=128 * 1024 * 1024)
-    mshape = jax.ShapeDtypeStruct((s_eff, n_eff, n_eff), r_f.dtype)
-    vshape = jax.ShapeDtypeStruct((s_eff, n_eff), r_f.dtype)
+                             ns_schedule=tuple(ns_schedule), ni=int(ni))
+    mshape = jax.ShapeDtypeStruct((n_spec, n_pad, n_pad), r_f.dtype)
+    vshape = jax.ShapeDtypeStruct((n_spec, n_pad), r_f.dtype)
     out = pl.pallas_call(
         kern,
-        grid=grid,
+        grid=(n_spec,),
         in_specs=[mat_spec] * 4 + [vec_spec] * 2
                  + [mat_spec] * 2 + [vec_spec] * 2 + [ek_spec, d_spec],
         out_specs=[mat_spec] * 4 + [vec_spec] * 2,
         out_shape=[mshape] * 4 + [vshape] * 2,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS[n_pad],
+                                                num_stages=1),
         interpret=interpret,
-        **kwargs,
-    )(*mats, *vecs, *amats, *avecs, ek2, d2)
-    if pack > 1:
-        out = ([blockdiag_unpack(o, pack, n) for o in out[:4]]
-               + [o.reshape(n_pad, n) for o in out[4:]])
-    if pad:
-        out = [o[:n_spec] for o in out]
-    return LayerRT(r_mp=out[0], r_pm=out[1], t_pp=out[2], t_mm=out[3],
-                   j_p=out[4], j_m=out[5])
-
-
-def fused_layer_step_dev(comp, r_f, g_el, e_el, jp, jm_f, ek, d_vec, *,
-                         ns_schedule: tuple, ni: int = 4, block_s: int = 16,
-                         interpret: bool = False,
-                         precision_name: str = "bf16x3"):
-    """Differentiable wrapper around the dev-form Pallas layer step
-    (primal kernel: _fused_layer_step_dev_prim; tangent rule:
-    _xla_twin_step_dev)."""
-    statics = (("ns_schedule", tuple(ns_schedule)), ("ni", int(ni)),
-               ("block_s", int(block_s)), ("interpret", bool(interpret)),
-               ("precision_name", precision_name))
-    f = _fls_differentiable(statics, dev=True)
-    return f(comp, r_f, g_el, e_el, jp, jm_f, ek,
-             jnp.asarray(d_vec, r_f.dtype))
-
-
-@functools.partial(jax.jit, static_argnames=("ns_schedule", "ni", "block_s",
-                                             "interpret", "precision_name"))
-def _fused_layer_step_dev_prim(comp, r_f, g_el, e_el, jp, jm_f, ek, d_vec, *,
-                               ns_schedule: tuple, ni: int = 4,
-                               block_s: int = 16, interpret: bool = False,
-                               precision_name: str = "bf16x3"):
-    """Direct/diffuse split layer step (see _layer_step_kernel_dev).
-
-    comp is a core.rt.LayerRTDev pytree; the elemental layer arrives
-    pre-split (r_f/e_el (nSpec, N, N), g_el/jp/jm_f (nSpec, N), ek
-    (nSpec,)). Defaults to 3-pass bf16x3 matmuls — safe here because no
-    operand carries the ~1.0 direct diagonal (docs/PERF_NOTES.md round 4).
-    Point packing is not offered: the split form has no in-kernel identity,
-    and packing was measured cost-neutral at these shapes.
-    """
-    from vsmartmom.core.rt import LayerRTDev
-
-    n_spec, n, _ = r_f.shape
-    pad = (-n_spec) % block_s
-    mats = [comp.r_mp, comp.r_pm, comp.e_pp, comp.e_mm]
-    vecs = [comp.g, comp.j_p, comp.j_m]
-    amats = [r_f, e_el]
-    avecs = [g_el, jp, jm_f]
-    if pad:
-        zm = [(0, pad), (0, 0), (0, 0)]
-        zv = [(0, pad), (0, 0)]
-        # padded points are vacuum slabs: g = 1, everything else 0 -> inert
-        mats = [jnp.pad(m, zm) for m in mats]
-        vecs = [jnp.pad(comp.g, zv, constant_values=1.0),
-                jnp.pad(comp.j_p, zv), jnp.pad(comp.j_m, zv)]
-        amats = [jnp.pad(m, zm) for m in amats]
-        avecs = [jnp.pad(g_el, zv, constant_values=1.0),
-                 jnp.pad(jp, zv), jnp.pad(jm_f, zv)]
-        ek = jnp.pad(ek, [(0, pad)], constant_values=1.0)
-    n_pad = n_spec + pad
-    precision = {"bf16x3": "bf16x3",
-                 "highest": lax.Precision.HIGHEST,
-                 "default": lax.Precision.DEFAULT}[precision_name]
-
-    grid = (n_pad // block_s,)
-    mat_spec = pl.BlockSpec((block_s, n, n), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-    vec_spec = pl.BlockSpec((block_s, n), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    ek_spec = pl.BlockSpec((block_s, 1), lambda i: (i, 0),
-                           memory_space=pltpu.VMEM)
-    d_spec = pl.BlockSpec((1, n), lambda i: (0, 0),
-                          memory_space=pltpu.VMEM)
-
-    kern = functools.partial(_layer_step_kernel_dev,
-                             ns_schedule=tuple(ns_schedule), ni=int(ni),
-                             precision=precision)
-    kwargs = {}
-    if not interpret:
-        kwargs["compiler_params"] = pltpu.CompilerParams(
-            vmem_limit_bytes=128 * 1024 * 1024)
-    mshape = jax.ShapeDtypeStruct((n_pad, n, n), r_f.dtype)
-    vshape = jax.ShapeDtypeStruct((n_pad, n), r_f.dtype)
-    out = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[mat_spec] * 4 + [vec_spec] * 3
-                 + [mat_spec] * 2 + [vec_spec] * 3 + [ek_spec, d_spec],
-        out_specs=[mat_spec] * 4 + [vec_spec] * 3,
-        out_shape=[mshape] * 4 + [vshape] * 3,
-        interpret=interpret,
-        **kwargs,
-    )(*mats, *vecs, *amats, *avecs, ek.reshape(n_pad, 1),
-      jnp.asarray(d_vec, r_f.dtype).reshape(1, n))
-    if pad:
-        out = [o[:n_spec] for o in out]
-    return LayerRTDev(r_mp=out[0], r_pm=out[1], e_pp=out[2], e_mm=out[3],
-                      g=out[4], j_p=out[5], j_m=out[6])
+        name="fused_layer_step",
+    )(*comp, *mats, *vecs, ek.reshape(n_spec, 1), d)
+    new = LayerRT(*out)
+    return new if n_comp == n_pad else unpad_layer(new, n_comp)

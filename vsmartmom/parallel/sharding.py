@@ -1,11 +1,11 @@
-"""Spectral-axis sharding across TPU meshes.
+"""Spectral-axis sharding across device meshes.
 
 The hyperspectral dimension (nSpec) is embarrassingly parallel for elastic RT
 (zero cross-wavelength coupling; ref SURVEY §2.7): every array in the RT core
-is batch-leading over nSpec, so a 1-D ``NamedSharding`` over a device mesh
-scales rt_run across chips with no collectives on the hot path. (Raman
-inelastic runs add a banded cross-nu coupling handled by halo exchange —
-see vsmartmom/inelastic.)
+is batch-leading over nSpec, so ``rt_run_band(..., mesh=spectral_mesh())``
+runs each device's slice under shard_map with no collectives on the hot
+path. (Raman inelastic runs add a banded cross-nu coupling handled by halo
+exchange — see vsmartmom/inelastic.)
 
 This replaces the reference's single-GPU CUBLAS batching with XLA SPMD; the
 reference has no multi-device path at all (SURVEY §5.8).

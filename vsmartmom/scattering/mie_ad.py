@@ -7,7 +7,7 @@ the reference exposes through ForwardDiff
 (ref: src/Scattering/phase_function_autodiff.jl:41-94) and uses for
 aerosol-state retrievals (test/prototyping/AD_OCO2_test.jl).
 
-Design notes (TPU/XLA-first):
+Design notes (XLA-first):
   * Everything radius-dependent but parameter-independent (radius
     quadrature, size parameters x, Riccati-Bessel psi/chi recursions,
     pi/tau angular functions, Legendre projection tables) is precomputed

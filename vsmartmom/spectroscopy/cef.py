@@ -1,5 +1,5 @@
 """Complex error (Faddeeva) functions w(z) for Voigt lineshapes — jnp,
-branchless (select-both-sides), TPU-friendly.
+branchless (select-both-sides), so XLA fuses them.
 
 ref: src/Absorption/complex_error_functions.jl (Humlicek 1982 regions,
 Humlicek 1979 CPF12, Weideman 1994 32-term rational approximation).

@@ -3,7 +3,7 @@
 ref: src/Absorption/read_hitran.jl:14-68 and Absorption/types.jl:24-63.
 The 160-character HITRAN2004+ format: 19 fixed-width fields per line.
 Parsed into numpy column arrays (struct-of-arrays) for vectorized line
-preparation on the TPU path.
+preparation on the device.
 """
 from __future__ import annotations
 

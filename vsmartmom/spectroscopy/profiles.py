@@ -23,6 +23,8 @@ _SEARCH_DIRS = [
     os.environ.get("VSMARTMOM_HITRAN_DIR", ""),
     os.path.join(os.getcwd(), "data", "hitran"),
     os.path.join(os.path.dirname(__file__), "data", "hitran"),
+    # the checkout's own line lists, wherever the process runs from
+    os.path.join(os.path.dirname(__file__), "..", "..", "data", "hitran"),
 ]
 
 
@@ -98,9 +100,9 @@ def compute_absorption_profile(tau_abs: np.ndarray, molecule: str,
 
     ref: atmo_prof.jl:427-449. Mutates tau_abs (nSpec, nZ) in place.
 
-    engine: 'dense' (f64 chunk sweep — the HAPI-gate numerics), 'pallas'
-    (f32 TPU tile kernel, one tiling plan cached across the layer loop),
-    or 'auto' (pallas on accelerators, dense on CPU).
+    engine: 'dense' (f64 chunk sweep — the HAPI-gate numerics), 'tiled'
+    (f32 line-bucketed tiles, one tiling plan cached across the layer
+    loop), or 'auto' (tiled on the GPU, dense on the CPU).
     """
     n_z = profile.n_layers
     assert tau_abs.shape[1] == n_z
@@ -150,13 +152,12 @@ def compute_absorption_profile(tau_abs: np.ndarray, molecule: str,
                                   cef=absorption_params.cef, vmr=0.0)
         if engine == "auto":
             import jax
-            engine = ("dense" if jax.default_backend() == "cpu"
-                      else "pallas")
-        if engine == "pallas":
+            engine = "tiled" if jax.default_backend() == "gpu" else "dense"
+        if engine == "tiled":
             from vsmartmom.spectroscopy.voigt import make_voigt_plan
             plan = make_voigt_plan(model, grid)
             xsec = lambda p, t: np.asarray(compute_absorption_cross_section(
-                model, grid, p, t, engine="pallas", plan=plan))
+                model, grid, p, t, engine="tiled", plan=plan))
         else:
             xsec = lambda p, t: np.asarray(
                 compute_absorption_cross_section(model, grid, p, t))

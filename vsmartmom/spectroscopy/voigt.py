@@ -1,12 +1,13 @@
 """Line-by-line absorption cross-section synthesis.
 
-TPU-native re-design of the reference's per-line kernel-launch loop
+Re-design of the reference's per-line kernel-launch loop
 (ref: src/Absorption/compute_absorption_cross_section.jl:19-130): all line
 parameters are prepared as vectors, and the lineshape accumulation runs as a
 single jitted lax.scan over line chunks — each chunk evaluates its Faddeeva
 profiles against the whole grid with a wing-cutoff mask and accumulates.
-(A Pallas tile kernel with line bucketing by wavenumber replaces the dense
-chunk sweep for very wide bands; see vsmartmom/pallas/voigt_kernel.py.)
+The f32 ``tiled`` engine (VoigtPlan) instead buckets lines by wavenumber:
+each grid tile sweeps only the line chunks whose wing window overlaps it,
+so work scales with the cutoff window instead of the full band width.
 
 Physics (HITRAN standard):
   nu* = nu + (p/p_ref) delta_air                      pressure shift
@@ -177,7 +178,7 @@ def _xsec_kernel(grid, nu, sw, elower, gamma_air, gamma_self, n_air,
 
 def line_parameters(model: HitranModel, pressure, temperature):
     """Per-line (nu_shifted, strength(T), gamma_d, y) as host f64 arrays —
-    the inputs of the Pallas Voigt kernel path."""
+    the inputs of the tiled engine (VoigtPlan.run)."""
     ht = model.hitran
     p, T = float(pressure), float(temperature)
     nu_s = ht.nu + p / P_REF * ht.delta_air
@@ -198,12 +199,11 @@ def line_parameters(model: HitranModel, pressure, temperature):
     return nu_s, s, gamma_d, y
 
 
-def make_voigt_plan(model: HitranModel, grid, interpret=None):
-    """Build a Pallas tiling plan for repeated (p, T) evaluations of this
-    model on a fixed grid (see pallas.voigt_kernel.VoigtPlan)."""
-    from vsmartmom.pallas.voigt_kernel import VoigtPlan
+def make_voigt_plan(model: HitranModel, grid):
+    """Build a tiling plan for repeated (p, T) evaluations of this model on
+    a fixed grid (see VoigtPlan)."""
     return VoigtPlan(np.asarray(grid, np.float64), model.hitran.nu,
-                     model.wing_cutoff, interpret=interpret)
+                     model.wing_cutoff)
 
 
 def compute_absorption_cross_section(model: HitranModel, grid, pressure,
@@ -214,11 +214,11 @@ def compute_absorption_cross_section(model: HitranModel, grid, pressure,
     wavelength (nm, with wavelength_flag) grid.
 
     engine='dense' (default): f64 jnp chunk sweep (the HAPI-gate path).
-    engine='pallas': f32 TPU tile kernel (pass a cached ``plan`` from
+    engine='tiled': f32 line-bucketed tiles (pass a cached ``plan`` from
     make_voigt_plan to amortize the host bucketing across (p, T) calls).
     ref: compute_absorption_cross_section.jl:19-130
     """
-    if engine == "pallas":
+    if engine == "tiled":
         if wavelength_flag:
             grid = np.sort(1e7 / np.asarray(grid, np.float64))
         if plan is None:
@@ -279,3 +279,186 @@ def absorption_cross_section(model: HitranModel, grid, pressure, temperature,
     value = f(x0)
     jac = jax.jacfwd(f)(x0)
     return value, jac
+
+
+# --- f32 line-bucketed tiles -------------------------------------------------
+#
+# The grid is cut into tiles of TILE points; lines are sorted by wavenumber
+# and grouped in chunks of CHUNK, and each tile sweeps only the chunk range
+# whose wing window overlaps it. Wavenumbers are tile-centered on the host:
+# absolute ~1e4 cm^-1 values would alias Doppler widths ~1e-2 cm^-1 at f32
+# resolution. The Faddeeva Re w(z) (Humlicek region II / Weideman-32, the
+# reference's default HumlicekWeidemann32SD CEF) is written in real
+# arithmetic so the whole sweep fuses into elementwise work.
+
+TILE = 256                         # grid points per tile
+CHUNK = 64                         # lines per bucket step
+
+_ISQRTPI = 0.5641895835477563
+_L32 = float(np.sqrt(32.0 / np.sqrt(2.0)))
+
+
+def _rew_humlicek2(x, y):
+    """Re w(z), Humlicek (1982) region II, real arithmetic.
+    t = y - i x; w = t (1.410474 + u/sqrt(pi)) / (0.75 + u (3 + u))."""
+    u_re = y * y - x * x
+    u_im = -2.0 * x * y
+    a = 1.410474 + _ISQRTPI * u_re
+    b = _ISQRTPI * u_im
+    num_re = y * a + x * b
+    num_im = y * b - x * a
+    d3 = 3.0 + u_re
+    den_re = 0.75 + u_re * d3 - u_im * u_im
+    den_im = u_im * d3 + u_re * u_im
+    return ((num_re * den_re + num_im * den_im)
+            / (den_re * den_re + den_im * den_im))
+
+
+def _rew_weideman32(x, y):
+    """Re w(z), Weideman-32 rational approximation, real arithmetic.
+    iz = (-y, x); Z = (L + iz)/(L - iz); w = (1/sqrt(pi) + 2 poly(Z) R) R
+    with R = 1/(L - iz)."""
+    from vsmartmom.spectroscopy.cef import _W32
+    lr, li = _L32 + y, -x
+    inv = 1.0 / (lr * lr + li * li)
+    r_re, r_im = lr * inv, -li * inv            # R = 1/(L - iz)
+    n_re, n_im = _L32 - y, x                    # L + iz
+    z_re = n_re * r_re - n_im * r_im
+    z_im = n_re * r_im + n_im * r_re
+    # python-float coefficients stay weakly typed (a numpy f64 scalar
+    # would promote the f32 math under jax_enable_x64)
+    p_re = jnp.full_like(x, float(_W32[-1]))
+    p_im = jnp.zeros_like(x)
+    for c in [float(v) for v in _W32[-2::-1]]:
+        t_re = p_re * z_re - p_im * z_im + c
+        p_im = p_re * z_im + p_im * z_re
+        p_re = t_re
+    q_re = 2.0 * (p_re * r_re - p_im * r_im) + _ISQRTPI
+    q_im = 2.0 * (p_re * r_im + p_im * r_re)
+    return q_re * r_re - q_im * r_im
+
+
+def rew_hw32sd(x, y):
+    """Re w(x + iy): |x| + y >= 8 -> Humlicek II, else Weideman-32
+    (the reference's default CEF; spectroscopy.cef
+    w_humlicek_weideman32_sd)."""
+    s = jnp.abs(x) + y
+    return jnp.where(s >= 8.0, _rew_humlicek2(x, y), _rew_weideman32(x, y))
+
+
+def tile_lines(x, nu, amp, igd, yv, cutoff):
+    """Masked Voigt sum of a line chunk onto grid points: x (..., P) grid
+    offsets, line parameters (..., L) -> (..., P). Lines with amp = 0
+    (padding) or beyond the wing cutoff contribute nothing."""
+    dx = x[..., None, :] - nu[..., :, None]
+    re_w = rew_hw32sd(igd[..., :, None] * dx,
+                      jnp.broadcast_to(yv[..., :, None], dx.shape))
+    keep = (jnp.abs(dx) <= cutoff) & (amp[..., :, None] > 0.0)
+    return jnp.sum(jnp.where(keep, amp[..., :, None] * re_w, 0.0), axis=-2)
+
+
+def _line_rows(order, nu_rel, strength, gamma_d, y, n_rows):
+    """Sort lines by wavenumber, form per-line amplitudes, and pad to
+    n_rows chunks (padding: amp = 0, far-away center)."""
+    nu = nu_rel[order]
+    amp = jnp.maximum(
+        (strength[order] * SQRT_LN2_DIV_SQRT_PI
+         / gamma_d[order]).astype(jnp.float32), jnp.float32(1e-45))
+    igd = (SQRT_LN2 / gamma_d[order]).astype(jnp.float32)
+    yv = y[order].astype(jnp.float32)
+    pad_l = n_rows * CHUNK - nu.shape[0]
+
+    def rows(v, fill):
+        return jnp.concatenate(
+            [v.astype(jnp.float32), jnp.full((pad_l,), fill, jnp.float32)]
+        ).reshape(n_rows, CHUNK)
+
+    return rows(nu, 1e30), rows(amp, 0.0), rows(igd, 1.0), rows(yv, 1.0)
+
+
+@partial(jax.jit, static_argnames=("max_chunks", "n_rows"))
+def _voigt_exec(order, starts, n_chunks, nu_rel, strength, gamma_d, y,
+                    grid_t, centers, cutoff, *, max_chunks, n_rows):
+    """Every tile gathers its k-th line chunk and accumulates, for k over
+    the longest tile window; chunks past a tile's own window are masked."""
+    nu, amp, igd, yv = _line_rows(order, nu_rel, strength, gamma_d, y, n_rows)
+
+    def body(k, acc):
+        row = jnp.minimum(starts + k, n_rows - 1)
+        live = (k < n_chunks)[:, None]
+        return acc + tile_lines(
+            grid_t, nu[row] - centers[:, None],
+            jnp.where(live, amp[row], 0.0), igd[row], yv[row], cutoff)
+
+    return jax.lax.fori_loop(0, max_chunks, body, jnp.zeros_like(grid_t))
+
+
+class VoigtPlan:
+    """Reusable tiling/bucketing plan for one (grid, line-list) pair.
+
+    Host work (sorting, tiling, per-tile line buckets) happens once; each
+    ``run`` call ships the per-(p, T) line-parameter vectors and runs as a
+    single jitted dispatch on device. Buckets come from the unshifted line
+    positions with a ``shift_margin`` [cm^-1] slack for pressure shifts.
+    """
+
+    def __init__(self, grid, nu_lines, wing_cutoff, shift_margin=0.5):
+        grid64 = np.asarray(grid, np.float64)
+        self.nu0 = 0.5 * (grid64[0] + grid64[-1])
+        self.n_grid = len(grid64)
+        order = np.argsort(nu_lines, kind="stable")
+        nu64 = np.asarray(nu_lines, np.float64)[order] - self.nu0
+        self.order = jnp.asarray(order.astype(np.int32))
+
+        self.n_tiles = (self.n_grid + TILE - 1) // TILE
+        pad_g = self.n_tiles * TILE - self.n_grid
+        g_rel = grid64 - self.nu0
+        grid_p = np.concatenate([g_rel, np.full(pad_g, g_rel[-1] + 1e6)])
+        tiles = grid_p.reshape(self.n_tiles, TILE)
+        # center each tile on its REAL points only (a padded last tile
+        # would otherwise shift the center by ~1e6 and destroy f32
+        # precision for its real points)
+        hi_real = np.array([grid_p[min((t + 1) * TILE, self.n_grid) - 1]
+                            for t in range(self.n_tiles)])
+        centers = 0.5 * (tiles[:, 0] + hi_real)
+        self.grid_t = jnp.asarray(
+            (tiles - centers[:, None]).astype(np.float32))
+        self.centers = jnp.asarray(centers.astype(np.float32))
+
+        pad = wing_cutoff + shift_margin
+        first = np.searchsorted(nu64, tiles.min(axis=1) - pad, side="left")
+        last = np.searchsorted(nu64, hi_real + pad, side="right")
+        start_row = (first // CHUNK).astype(np.int32)
+        n_ck = np.maximum(
+            -(-(last - start_row * CHUNK) // CHUNK), 0).astype(np.int32)
+        self.max_chunks = max(int(n_ck.max()), 1)
+        self.n_rows = max((len(nu64) + CHUNK - 1) // CHUNK, 1)
+        self.starts = jnp.asarray(start_row)
+        self.n_chunks = jnp.asarray(n_ck)
+        self.cutoff = np.float32(wing_cutoff)
+
+    def run(self, nu_s, strength, gamma_d, y):
+        """sigma(grid) for pressure-shifted line positions nu_s and
+        per-line strength/Doppler-width/y (original line order).
+
+        nu_s should be host float64 (the band-centering subtraction
+        happens at f64 before the f32 cast — absolute wavenumbers exceed
+        f32 resolution relative to Doppler widths).
+        """
+        nu_rel = jnp.asarray(
+            (np.asarray(nu_s, np.float64) - self.nu0).astype(np.float32))
+        out = _voigt_exec(
+            self.order, self.starts, self.n_chunks, nu_rel,
+            jnp.asarray(strength, jnp.float32),
+            jnp.asarray(gamma_d, jnp.float32),
+            jnp.asarray(y, jnp.float32),
+            self.grid_t, self.centers, self.cutoff,
+            max_chunks=self.max_chunks, n_rows=self.n_rows)
+        return out.reshape(-1)[:self.n_grid]
+
+
+def voigt_xsec_tiled(grid, nu_s, strength, gamma_d, y, wing_cutoff):
+    """One-shot tiled sigma(grid) = sum_l S_l sqrt(ln2/pi)/gamma_d
+    Re w(...); grid sorted ascending, host numpy in, f32 compute."""
+    plan = VoigtPlan(grid, nu_s, wing_cutoff, shift_margin=0.0)
+    return np.asarray(plan.run(nu_s, strength, gamma_d, y))

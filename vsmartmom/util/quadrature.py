@@ -1,6 +1,6 @@
 """Quadrature stream construction for the RT solver.
 
-TPU-native re-design of the reference's stream setup
+Re-design of the reference's stream setup
 (ref: src/CoreRT/tools/rt_set_streams.jl:24-170). All quadrature nodes are
 computed host-side in float64 with numpy (setup-time cost); the resulting
 ``QuadPoints`` arrays are consumed by the jitted RT core.
